@@ -33,7 +33,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (  # first match wins
-    ("K1 lstm_recurrence", ("lstm_recurrence_kernel",)),
+    ("K1 lstm_recurrence", ("lstm_recurrence_kernel", "lstm_cluster_kernel")),
     ("K2 decoder_layer_step", ("decoder_layer_step_kernel",)),
     ("K3 fused_beam_decode", ("fused_beam_decode_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop", "winograd")),

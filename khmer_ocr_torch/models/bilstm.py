@@ -2,12 +2,12 @@
 
 One bidirectional layer, input D, hidden D/2 per direction, gate order i, f,
 g, o. The input projection ``x @ W_ih + b_ih + b_hh`` for all steps is one
-matrix product; the serial recurrence goes to ops/kernels/lstm.py (kernel K1
-on the card, its plain version on the CPU). The backward direction is
-length-aware: each row is reversed within its valid length before the
-recurrence and reversed back after, so bucket padding never reaches valid
-positions. Parameters per direction: "w_ih" (D, 4H), "w_hh" (H, 4H), "b_ih",
-"b_hh" (4H,).
+matrix product per direction; the serial recurrences of both directions go
+to ops/kernels/lstm.py in one call (kernel K1 on the card, one launch; its
+plain version on the CPU). The backward direction is length-aware: each row
+is reversed within its valid length before the recurrence and reversed back
+after, so bucket padding never reaches valid positions. Parameters per
+direction: "w_ih" (D, 4H), "w_hh" (H, 4H), "b_ih", "b_hh" (4H,).
 """
 
 from __future__ import annotations
@@ -17,10 +17,14 @@ import torch
 from ..ops.kernels.lstm import lstm_recurrence
 
 
+def input_gates(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) -> the recurrence's input gates (B, T, 4H)."""
+    return torch.matmul(x, p["w_ih"]) + (p["b_ih"] + p["b_hh"])
+
+
 def lstm_scan(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Unidirectional LSTM over (B, T, D) -> (B, T, H)."""
-    xg = torch.matmul(x, p["w_ih"]) + (p["b_ih"] + p["b_hh"])
-    return lstm_recurrence(xg.contiguous(), p["w_hh"])
+    return lstm_recurrence(input_gates(p, x).contiguous(), p["w_hh"])
 
 
 def flip_within_length(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -34,10 +38,12 @@ def flip_within_length(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def bilstm_apply(p: dict, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """concat(forward, length-aware backward) -> (B, T, 2H)."""
-    fw = lstm_scan(p["fw"], x)
+    """concat(forward, length-aware backward) -> (B, T, 2H); the two
+    directions' recurrences in one stacked call."""
     if lengths is None:
-        bw = torch.flip(lstm_scan(p["bw"], torch.flip(x, dims=(1,))), dims=(1,))
+        flip = lambda y: torch.flip(y, dims=(1,))
     else:
-        bw = flip_within_length(lstm_scan(p["bw"], flip_within_length(x, lengths)), lengths)
-    return torch.cat([fw, bw], dim=-1)
+        flip = lambda y: flip_within_length(y, lengths)
+    xg = torch.stack([input_gates(p["fw"], x), input_gates(p["bw"], flip(x))])
+    h = lstm_recurrence(xg, torch.stack([p["fw"]["w_hh"], p["bw"]["w_hh"]]))
+    return torch.cat([h[0], flip(h[1])], dim=-1)

@@ -7,9 +7,10 @@ mem_valid_f, lineage, num_heads=, window=, lanes=)`` returns the layer output
 at slot ``pos``; no other cache slot changes. ``weights`` is the dict of
 ``layer_weights``. ``lineage`` (B, window) int32 holds image-local beam
 parents (None for greedy); slot ``pos`` reads the lane itself whatever the
-table says. Any number of lanes: the kernel runs one CTA per image and group
-of up to four of its lanes. A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+table says. Any number of lanes: the kernel runs one thread-block cluster
+per image and group of its lanes (``geometry.k2_geometry``), one CTA per
+attention head. A CPU tensor takes the plain version; a CUDA tensor launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ...models.layers import decoder_layer_step as _layer_step_plain
 from . import build
+from .geometry import MAX_CLUSTER, k2_geometry
 
 WEIGHT_FIELDS = (
     "qkv_w", "qkv_b", "so_w", "so_b", "ln1_s", "ln1_b",
@@ -91,12 +93,14 @@ def decoder_layer_step(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_
     if x.device.type == "cpu":
         return decoder_layer_step_plain(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
                                         num_heads=num_heads, window=window, lanes=lanes)
-    return _launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
-                   num_heads=num_heads, window=window, lanes=lanes)
+    return decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
+                                     num_heads=num_heads, window=window, lanes=lanes)
 
 
-def _launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, *,
-            num_heads: int, window: int, lanes: int):
+def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage=None, *,
+                              num_heads: int, window: int, lanes: int = 1, split: int | None = None):
+    """The kernel on CUDA tensors, with ``geometry.k2_geometry``'s CTAs per
+    head or ``split`` (1 or 2) if given."""
     global launches
     name = "decoder_layer_step"
     b, d = x.shape
@@ -130,22 +134,27 @@ def _launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
             raise ValueError(f"{name}: {key} has shape {tuple(tensors[key].shape)}, expected {shape}")
     if lanes < 1 or n_img * lanes != b:
         raise ValueError(f"{name}: {b} rows are not {n_img} images x {lanes} lanes")
-    if d % num_heads or d % 4 or f % 4:
-        raise ValueError(f"{name}: D={d}, F={f}, heads={num_heads} (needs D % heads == 0, D % 4 == F % 4 == 0)")
+    group, _, ctas = k2_geometry(n_img, lanes, num_heads, tm)
+    split = ctas // num_heads if split is None else split
+    if split not in (1, 2) or num_heads * split > MAX_CLUSTER or d % num_heads or (d // num_heads) % (4 * split) \
+            or f % (num_heads * split) or (f // (num_heads * split)) % 4:
+        raise ValueError(f"{name}: D={d}, F={f}, heads={num_heads}, {split} CTA(s) a head (needs at most "
+                         f"{MAX_CLUSTER} CTAs, D/(heads x split) and F/(heads x split) multiples of 4)")
     if not 0 <= pos < w:
         raise ValueError(f"{name}: pos {pos} outside the window {w}")
     lib = build.load(name)
-    smem = lib.decoder_layer_step_smem_bytes(lanes, d, num_heads, f)
+    smem = lib.decoder_layer_step_smem_bytes(group, d, num_heads, f, split)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} bytes of shared memory, more than {SMEM_LIMIT}")
     out = torch.empty_like(x)
     ptrs = [x, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, *(weights[k] for k in WEIGHT_FIELDS), out]
     arr = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     fn = lib.decoder_layer_step_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(ctypes.cast(arr, ctypes.c_void_p), n_img, lanes, d, num_heads, f, cache_len, tm, pos, w, stream)
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), n_img, lanes, group, d, num_heads, f, cache_len, tm, pos, w, split,
+             stream)
     build.check(err, name)
     launches += 1
     return out

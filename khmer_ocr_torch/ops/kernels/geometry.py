@@ -1,0 +1,94 @@
+"""Launch geometry of kernels K1 and K2, chosen on the host from the shapes.
+
+Plain Python (no torch), so the CPU tests check these rules in any process.
+The measured numbers behind the constants come from
+examples/k1_routes_torch.py (K1) and chip_smoke.py's [K2] phase (K2) on an
+NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
+"""
+
+from __future__ import annotations
+
+import math
+
+# --- K1, the LSTM recurrence ---------------------------------------------
+
+CLUSTER_HIDDEN = 192  # the hidden width the cluster route is compiled for (D = 384)
+CLUSTER_CTAS = 8      # CTAs per cluster, each owning H / 8 hidden units (16 measured no faster)
+CLUSTER_ROWS = (1, 2, 4, 8)
+# Clusters of 8 CTAs that run at once on the H100: more wait for a second
+# wave. Times below: examples/k1_routes_torch.py, T = 256, NVIDIA H100 80GB
+# HBM3 at 700 W; 16 rows in 2 directions took 0.923 ms at 2 rows a cluster
+# (16 clusters) and 0.710 ms at 4 (8 clusters).
+MAX_CLUSTERS = 8
+# The batch size per direction from which the tile route measures faster
+# than the cluster route, by number of directions: with 2 directions the
+# cluster route won at 96 rows (2.295 against 3.665 ms) and lost at 128
+# (3.378 against 2.455 ms); with 1 it won at 256 (3.347 against 3.921 ms)
+# and lost at 384 (4.505 against 3.976 ms).
+TILE_FROM_BATCH = {1: 384, 2: 128}
+
+
+def tile_rows(batch: int) -> int:
+    """Batch rows per CTA of the tile route: enough CTAs to spread over the
+    SMs while small batches still run one row per CTA."""
+    for rows, least in ((8, 512), (4, 256), (2, 128)):
+        if batch >= least:
+            return rows
+    return 1
+
+
+def k1_route(batch: int, hidden: int, ndir: int = 1) -> tuple[int, int]:
+    """(route, rows) for ``batch`` rows in each of ``ndir`` directions.
+    Route 0 is the tile route (one CTA per ``rows`` batch rows); any other
+    route is the cluster route with that many CTAs per cluster of ``rows``
+    batch rows: for hidden width 192 below the crossover, with the fewest
+    rows per cluster that keep every cluster in the first wave."""
+    if hidden != CLUSTER_HIDDEN or batch >= TILE_FROM_BATCH[min(ndir, 2)]:
+        return 0, tile_rows(batch)
+    for rows in CLUSTER_ROWS:
+        if ndir * math.ceil(batch / rows) <= MAX_CLUSTERS:
+            return CLUSTER_CTAS, rows
+    return CLUSTER_CTAS, CLUSTER_ROWS[-1]
+
+
+def cluster_slices(hidden: int, ctas: int) -> list[list[int]]:
+    """The gate columns of W_hh (H, 4H) that each CTA of a cluster owns: its
+    hidden units u in [c H/C, (c+1) H/C) and their columns u, H+u, 2H+u,
+    3H+u, in the kernel's unit-major order."""
+    units = hidden // ctas
+    return [[gate * hidden + c * units + u for u in range(units) for gate in range(4)] for c in range(ctas)]
+
+
+# --- K2, the decoder layer step ------------------------------------------
+
+MAX_GROUP = 8     # lanes per cluster (the kernel's instantiations)
+MAX_CLUSTER = 16  # CTAs per cluster the H100 allows (above 8 as a non-portable size)
+SMS = 132         # streaming multiprocessors of an H100 SXM
+SPLIT_FROM_TM = 1024
+
+
+def k2_geometry(n_img: int, lanes: int, num_heads: int, tm: int) -> tuple[int, int, int]:
+    """(lanes per cluster, clusters, CTAs per cluster) of one launch: all of
+    an image's lanes in one cluster up to 8, else the largest divisor of
+    ``lanes`` that is at most 8; one CTA per attention head, two when
+    ``k2_split`` says so. A cluster reads slots < pos of any lane of its
+    image (written by earlier launches) and slot pos of its own lanes only,
+    so the clusters of one image need no synchronisation."""
+    group = min(lanes, MAX_GROUP)
+    while lanes % group:
+        group -= 1
+    clusters = n_img * (lanes // group)
+    return group, clusters, num_heads * k2_split(clusters, num_heads, tm)
+
+
+def k2_split(clusters: int, num_heads: int, tm: int) -> int:
+    """CTAs per head: 2 (each takes half the head's columns of every
+    projection and half its memory positions) for memories of 1024
+    positions or more while the launch still fits the SMs at one CTA each,
+    else 1. The second CTA costs three more cluster barriers and pays from
+    long memories on (chip_smoke.py [K2], 3 lanes, device ms with 2 and 1
+    CTAs a head: Tm=4096 one image 0.0901 and 0.1162, 8 images 0.1292 and
+    0.1672; Tm=1024 one image 0.0545 and 0.0568, 8 images 0.0637 and
+    0.0739; Tm=256 one image 0.0466 and 0.0464, 8 images 0.0560 and 0.0495)."""
+    fits = 2 * num_heads <= MAX_CLUSTER and clusters * 2 * num_heads <= SMS
+    return 2 if fits and tm >= SPLIT_FROM_TM else 1

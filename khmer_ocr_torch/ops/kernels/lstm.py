@@ -1,11 +1,17 @@
 """LSTM recurrence: CUDA kernel K1 (``csrc/lstm_recurrence.cu``) and its
 plain PyTorch version.
 
-``lstm_recurrence(xg, w_hh)`` runs the recurrence of one direction from a
-zero state: xg (B, T, 4H) are the precomputed input gates (x @ W_ih + b_ih +
-b_hh), w_hh (H, 4H), gate order i, f, g, o. Returns h for every step, (B, T,
-H). A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+``lstm_recurrence(xg, w_hh)`` runs the recurrence from a zero state: xg (B,
+T, 4H) are the precomputed input gates (x @ W_ih + b_ih + b_hh), w_hh (H,
+4H), gate order i, f, g, o. Returns h for every step, (B, T, H). With a
+leading direction axis, xg (2, B, T, 4H) and w_hh (2, H, 4H), the two
+directions' independent recurrences run in one launch and the result is (2,
+B, T, H). A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.
+
+The kernel has two routes, chosen by ``geometry.k1_route`` from the shape:
+clusters that keep W_hh on chip for small batches, one CTA per batch tile
+for large ones.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import ctypes
 import torch
 
 from . import build
+from .geometry import CLUSTER_HIDDEN, k1_route
 
 launches = 0  # kernel launches since the last reset_launches()
 
@@ -24,8 +31,7 @@ def reset_launches() -> None:
     launches = 0
 
 
-def lstm_recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """The recurrence as a Python loop over t (the yardstick of the kernel)."""
+def _lstm_one(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     b, t, _ = xg.shape
     hidden = w_hh.shape[0]
     h = xg.new_zeros(b, hidden)
@@ -42,34 +48,50 @@ def lstm_recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def lstm_recurrence_plain(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """The recurrence as a Python loop over t, and over the direction axis if
+    there is one (the yardstick of the kernel)."""
+    if xg.dim() == 4:
+        return torch.stack([_lstm_one(x, w) for x, w in zip(xg, w_hh)])
+    return _lstm_one(xg, w_hh)
+
+
 def lstm_recurrence(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     if xg.device.type == "cpu" and w_hh.device.type == "cpu":
         return lstm_recurrence_plain(xg, w_hh)
-    return _launch(xg, w_hh)
+    return lstm_recurrence_route(xg, w_hh)
 
 
-def _launch(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+def lstm_recurrence_route(xg: torch.Tensor, w_hh: torch.Tensor, route: tuple[int, int] | None = None):
+    """The kernel on CUDA tensors, by ``k1_route``'s route or the one given."""
     global launches
     if not (xg.is_cuda and w_hh.is_cuda and xg.device == w_hh.device):
         raise RuntimeError(f"lstm_recurrence: needs CUDA tensors on one device, got {xg.device} and {w_hh.device}")
     if xg.dtype != torch.float32 or w_hh.dtype != torch.float32:
         raise TypeError(f"lstm_recurrence: float32 only, got {xg.dtype} and {w_hh.dtype}")
-    if xg.dim() != 3 or w_hh.dim() != 2:
-        raise ValueError(f"lstm_recurrence: xg (B, T, 4H) and w_hh (H, 4H), got {tuple(xg.shape)}, {tuple(w_hh.shape)}")
-    b, t, g = xg.shape
-    hidden = w_hh.shape[0]
-    if g != 4 * hidden or w_hh.shape[1] != 4 * hidden or 4 * hidden > 1024:
+    stacked = xg.dim() == 4
+    if xg.dim() not in (3, 4) or w_hh.dim() != xg.dim() - 1 or (stacked and xg.shape[0] != w_hh.shape[0]):
+        raise ValueError(f"lstm_recurrence: xg ([ndir,] B, T, 4H) and w_hh ([ndir,] H, 4H), "
+                         f"got {tuple(xg.shape)}, {tuple(w_hh.shape)}")
+    ndir = xg.shape[0] if stacked else 1
+    b, t, g = xg.shape[-3:]
+    hidden = w_hh.shape[-2]
+    if g != 4 * hidden or w_hh.shape[-1] != 4 * hidden or 4 * hidden > 1024:
         raise ValueError(f"lstm_recurrence: shapes {tuple(xg.shape)}, {tuple(w_hh.shape)} (needs 4H <= 1024)")
     if not (xg.is_contiguous() and w_hh.is_contiguous()):
         raise ValueError("lstm_recurrence: inputs must be contiguous")
-    out = torch.empty(b, t, hidden, device=xg.device, dtype=torch.float32)
-    if b == 0 or t == 0:
+    kind, rows = k1_route(b, hidden, ndir) if route is None else route
+    if kind and hidden != CLUSTER_HIDDEN:
+        raise ValueError(f"lstm_recurrence: the cluster route is compiled for H={CLUSTER_HIDDEN}, got {hidden}")
+    out = torch.empty(*xg.shape[:-1], hidden, device=xg.device, dtype=torch.float32)
+    if b == 0 or t == 0 or ndir == 0:
         return out
     lib = build.load("lstm_recurrence")
     fn = lib.lstm_recurrence_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(xg.device).cuda_stream
-    build.check(fn(xg.data_ptr(), w_hh.data_ptr(), out.data_ptr(), b, t, hidden, stream), "lstm_recurrence")
+    err = fn(xg.data_ptr(), w_hh.data_ptr(), out.data_ptr(), ndir, b, t, hidden, kind, rows, stream)
+    build.check(err, f"lstm_recurrence (route {kind}, {rows} rows)")
     launches += 1
     return out

@@ -25,7 +25,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "khmer_ocr_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*")
                     if p.suffix in (".py", ".cu", ".cuh", ".json") and "_build" not in p.parts) + [
-    "chip_smoke.py", "examples/probe_smem_torch.py", "examples/profile_torch_e2e.py"]
+    "chip_smoke.py", "examples/probe_smem_torch.py", "examples/profile_torch_e2e.py", "examples/k1_routes_torch.py"]
 IMPORTS_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
 
 RAISES = ("predictor_without_device", "recognize_without_device", "recognize_batch_without_device",
