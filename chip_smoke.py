@@ -21,11 +21,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      bit-identical, with one and (where the launch fits the SMs) two CTAs a
      head; timed as device time (a CUDA graph of launches) and as a call
      from Python;
-  5. K3 (whole beam decode) against its plain version on seeded flagship
-     decoder weights: 8 images at Tm 32..128, beam 2-4, max_len 16 and 64;
-     64 images at Tm=128; an <eos>-biased and an exact-ties head. Tokens
-     equal (near-ties excepted), scores within 1e-4 x max(1, |ref|); timed
-     beside the host-loop K2 path on the same inputs;
+  5. K3 (whole beam decode, one cluster of one CTA per head for each
+     image) against its plain version on seeded flagship decoder weights:
+     8 images at Tm 32..128, beam 2-4, max_len 16 and 64; 64 images at
+     Tm=128; an <eos>-biased and an exact-ties head; one image (a single
+     line's latency). The self caches stay on chip where geometry.k3_geometry
+     says (beam 2-3 at the flagship) and go to global memory otherwise; the
+     beam-3, Tm=128, max_len 64 cases of 8 and 64 images run both routes.
+     Tokens equal (near-ties excepted), scores within 1e-4 x max(1, |ref|);
+     timed beside the host-loop K2 path on the same inputs;
   6. K4 (dynamic shared memory probe): the probe's answer equals the device
      attribute within 1 KB, the next size is refused, row 0 equals the plain
      version;
@@ -410,9 +414,34 @@ def timed(torch, fn):
     return out, start.elapsed_time(end)
 
 
+def k3_agree(torch, shape, prm, cfg, memory, pad, got, ref):
+    """K3's tokens and scores against the plain version's, image by image:
+    (max score difference where the tokens are equal, images that differ);
+    fails unless each differing image is a near-tie."""
+    (tok, sc), (tok_p, sc_p) = got, ref
+    err, n_diff = 0.0, 0
+    for i in range(memory.shape[0]):
+        if torch.equal(tok[i], tok_p[i]):
+            e = (sc[i] - sc_p[i]).abs().max().item()
+            if not e <= TOL * max(1.0, sc_p[i].abs().max().item()):
+                fail(f"K3 {shape}: image {i} scores differ by {e:.3e}")
+            err = max(err, e)
+            continue
+        n_diff += 1
+        a, b = strip(tok_p[i].tolist()), strip(tok[i].tolist())
+        s_ref, s_got = (memory_score(torch, prm, cfg, memory[i:i + 1], pad[i:i + 1], torch.tensor(t, device="cuda"))
+                        for t in (a, b))
+        print(f"[K3] {shape}: image {i} differs: {a} vs {b}; normalised scores {s_ref:.7f} vs {s_got:.7f}")
+        if not abs(s_ref - s_got) < NEAR_TIE:
+            fail(f"K3 {shape}: image {i} differs and is not a near-tie")
+    return err, n_diff
+
+
 def phase_k3(torch, params, cfg):
     """K3 against its plain version on seeded flagship decoder weights and
-    random memories with ragged validity; the host-loop K2 path is timed on
+    random memories with ragged validity, by the route geometry.k3_geometry
+    picks and, for the K = 3 cases at Tm = 128 and max_len 64, also with the
+    self caches forced to global memory; the host-loop K2 path is timed on
     the same inputs as the yardstick."""
     import dataclasses
 
@@ -420,6 +449,7 @@ def phase_k3(torch, params, cfg):
     from khmer_ocr_torch.decode.beam import beam_decode
     from khmer_ocr_torch.models.ocr_model import pack_decode_params
     from khmer_ocr_torch.ops.kernels import decode_loop as K
+    from khmer_ocr_torch.ops.kernels import geometry
 
     d, f, heads, n_layers, vocab = cfg.emb_dim, cfg.dec_ffn_dim, cfg.num_heads, cfg.dec_layers, cfg.vocab_size
     layer_numel = sum(v.numel() for v in pack_decode_params(params)["dec"]["layers_kernel"][0].values())
@@ -432,7 +462,12 @@ def phase_k3(torch, params, cfg):
     tie_params["dec"]["out"].update(w=w, b=bias)  # exact ties every step
 
     cases = [("", params, 8, tm, k, ml) for ml in (16, 64) for k in (2, 3, 4) for tm in (32, 64, 96, 128)]
-    cases += [("", params, 64, 128, 3, 64), ("eos ", eos_params, 8, 64, 3, 64), ("ties ", tie_params, 8, 64, 3, 64)]
+    cases += [("", params, 64, 128, 3, 64), ("eos ", eos_params, 8, 64, 3, 64), ("ties ", tie_params, 8, 64, 3, 64),
+              ("", params, 1, 128, 3, 64)]
+    vp = geometry.k3_vocab_cols(vocab, heads)
+    resident = {route: K.resident_clusters(3, d, heads, f, 64, vp, n_layers, route, 128) for route in (True, False)}
+    print(f"[K3] clusters of {heads} CTAs the card holds at once (beam 3, Tm=128, max_len 64): {resident[True]} "
+          f"with the self caches on chip, {resident[False]} with them in global memory; more images run in waves")
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, worst = [], 0.0
     for tag, prm, n_img, tm, k, ml in cases:
@@ -441,38 +476,35 @@ def phase_k3(torch, params, cfg):
         pad = torch.arange(tm, device="cuda")[None, :] >= valid_len[:, None]
         dec = DecodeConfig(beam_width=k, max_len=ml)
         shape = f"{tag}{n_img}x{k} Tm={tm} max_len={ml}"
+        ctas, on_chip, tc = geometry.k3_geometry(k, d, heads, f, ml, vocab, n_layers, tm)
+        # the K = 3 cases at the gate's largest sizes also on the global route
+        forced = (True, False) if (tag, k, tm, ml) == ("", 3, 128, 64) and n_img > 1 else (on_chip,)
         with torch.inference_mode():
-            tok, sc = K.fused_beam_decode(prm, memory, pad, cfg, dec, return_scores=True)
-            (tok_p, sc_p), plain_ms = timed(torch, lambda: K.fused_beam_decode_plain(prm, memory, pad, cfg, dec,
-                                                                                     return_scores=True))
-            err, n_diff = 0.0, 0
-            for i in range(n_img):
-                if torch.equal(tok[i], tok_p[i]):
-                    e = (sc[i] - sc_p[i]).abs().max().item()
-                    if not e <= TOL * max(1.0, sc_p[i].abs().max().item()):
-                        fail(f"K3 {shape}: image {i} scores differ by {e:.3e}")
-                    err = max(err, e)
-                    continue
-                n_diff += 1
-                ref, got = strip(tok_p[i].tolist()), strip(tok[i].tolist())
-                s_ref, s_got = (memory_score(torch, prm, cfg, memory[i:i + 1], pad[i:i + 1],
-                                             torch.tensor(t, device="cuda")) for t in (ref, got))
-                print(f"[K3] {shape}: image {i} differs: {ref} vs {got}; normalised scores {s_ref:.7f} vs "
-                      f"{s_got:.7f}")
-                if not abs(s_ref - s_got) < NEAR_TIE:
-                    fail(f"K3 {shape}: image {i} differs and is not a near-tie")
+            ref, plain_ms = timed(torch, lambda: K.fused_beam_decode_plain(prm, memory, pad, cfg, dec,
+                                                                           return_scores=True))
+            err, n_diff, route_ms = 0.0, 0, {}
+            for route in forced:
+                got = K.fused_beam_decode_kernel(prm, memory, pad, cfg, dec, return_scores=True, on_chip=route)
+                e, n = k3_agree(torch, f"{shape} {'on chip' if route else 'global'}", prm, cfg, memory, pad, got,
+                                ref)
+                err, n_diff = max(err, e), max(n_diff, n)
+                route_ms[route] = cuda_ms(torch, lambda: K.fused_beam_decode_kernel(prm, memory, pad, cfg, dec,
+                                                                                    on_chip=route), 3)
             worst = max(worst, err)
-            ms = cuda_ms(torch, lambda: K.fused_beam_decode(prm, memory, pad, cfg, dec), 3)
+            ms = route_ms[on_chip]
             host_ms = cuda_ms(torch, lambda: beam_decode(prm, memory, pad, cfg,
                                                          dataclasses.replace(dec, mega_mode="0")), 2)
         nbytes, ops = k3_cost(n_img, k, d, f, heads, ml, tm, int(valid_len.sum()), n_layers, vocab, layer_numel)
         bms, by = bound_ms(nbytes, ops)
-        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms, host_loop_ms=host_ms,
-                         library_ms=None, bound_ms=bms, bound_by=by, images_differing=n_diff))
-        print(f"[K3] {shape:27s}: tokens equal plain ({n_diff} near-ties), scores max|diff| {err:.2e}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, host-loop K2 path {host_ms:.3f} ms, bound {bms:.4f} ms "
-              f"({by}), {bms / ms:.2%} of roofline")
-    return rows, worst
+        route = "on chip" if on_chip else "global"
+        rows.append(dict(shape=shape, route=route, ctas_per_cluster=ctas, chunk=tc, max_abs_err=err, ms=ms,
+                         global_ms=route_ms.get(False), on_chip_ms=route_ms.get(True), plain_ms=plain_ms,
+                         host_loop_ms=host_ms, library_ms=None, bound_ms=bms, bound_by=by, images_differing=n_diff))
+        also = "" if len(route_ms) == 1 else f" (self caches forced global: {route_ms[False]:.3f} ms)"
+        print(f"[K3] {shape:27s}: {n_img} cluster(s) of {ctas} CTAs, self caches {route}; tokens equal plain "
+              f"({n_diff} near-ties), scores max|diff| {err:.2e}; kernel {ms:.3f} ms{also}, plain {plain_ms:.3f} ms, "
+              f"host-loop K2 path {host_ms:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
+    return rows, worst, resident[True]
 
 
 def phase_k4(torch):
@@ -723,7 +755,7 @@ def main() -> int:
     state = params_from_jax(p, s, ModelConfig(), device="cuda")
     weights = layer_weights(pack_step_params(state["dec"]["layers"][0]))
     k2_rows, k2_err = phase_k2(torch, weights)
-    k3_rows, k3_err = phase_k3(torch, state, ModelConfig())
+    k3_rows, k3_err, k3_resident = phase_k3(torch, state, ModelConfig())
     k4 = phase_k4(torch)
     e2e = phase_e2e(torch, gpu_name, smi)
 
@@ -745,7 +777,9 @@ def main() -> int:
               k2_err, k2_main, k2_rows),
         # launches: the KHMER_OCR_MEGA_DECODE=1 request, K3's path
         entry("fused_beam_decode", "decode_loop.cu", tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"),
-              e2e["mega"]["k3"], k3_err, k3_main, k3_rows, host_loop_ms=k3_main["host_loop_ms"]),
+              e2e["mega"]["k3"], k3_err, k3_main, k3_rows, host_loop_ms=k3_main["host_loop_ms"],
+              ctas_per_cluster=k3_main["ctas_per_cluster"], self_caches=k3_main["route"],
+              global_ms=k3_main["global_ms"], resident_clusters=k3_resident),
         # launches: the probe's ladder and bisection, K4's path
         entry("smem_probe", "smem_probe.cu", tpu_kernel_site("probe_vmem.py", "try_mb"), k4["launches"],
               k4["max_abs_err"], k4, [], max_bytes=k4["max_bytes"], attribute_bytes=k4["attribute_bytes"]),

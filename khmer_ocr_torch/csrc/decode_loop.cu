@@ -4,8 +4,8 @@
 // ops/pallas/decode_loop.py::fused_beam_decode. For each image, all
 // max_len steps of the beam search, in the order of that kernel's step body:
 //   1. embedding: tok_emb[token] + pos_emb[step] (a row read, exact);
-//   2. every decoder layer (decoder_common.cuh, the layer kernel K2 runs),
-//      self-attention read through the lineage held in shared memory;
+//   2. every decoder layer, self-attention read through the lineage held in
+//      shared memory;
 //   3. the head x @ out_w + out_b over the V real columns;
 //   4. log-softmax per lane in f32 (precise expf/logf);
 //   5. per-lane top-K by iterative max, lowest index on ties;
@@ -19,25 +19,41 @@
 // exit is provably safe, so the tokens are the same).
 //
 // What bounds it on the H100: at the gate's sizes (Tm <= 128, max_len <= 64)
-// the bytes are the layer weights (8.3 MB per layer at D = 384, F = 1536),
-// which every CTA reads from L2 at every step, and its operations are a few
-// MFLOP per lane and step; the bound is far below what one CTA per image can
-// reach, because each image's steps and layers run one after another on one SM.
+// the bound is the operations (a few MFLOP per lane, step and layer) and the
+// layer weights (8.3 MB per layer at D = 384, F = 1536, read once); what a
+// decode costs is the serial chain of max_len x layers layer-steps, each of
+// which streams its weights from L2 and waits on barriers.
 //
-// Design (simple and right first): one CTA per image, templated on K in
-// {2, 3, 4}; the layer's shared-memory layout of decoder_common.cuh plus the
-// search state (tokens, lineage, scores, best completion, K rows of logits,
-// under 8 KB). The self-KV caches cannot stay on chip at the flagship width
-// (K x 64 slots x 384 x 4 B is 295 KB per layer for K alone at K = 3), so they
-// go to a global scratch (n_img * K, max_len, D) per layer that the wrapper
-// allocates; it stays in the 50 MB L2. A CTA reads only cache rows it wrote
-// at earlier steps, after a block barrier, so no other synchronisation is
-// needed. At 8 images 8 of 132 SMs work; splitting an image over several
-// CTAs, or a cooperative grid, is later work.
+// Design: one thread-block cluster of H CTAs (one per attention head) per
+// image, holding all K lanes and resident for all max_len steps. Every layer
+// of every step is the cluster layer that K2 launches
+// (decoder_cluster.cuh::cluster_layer): CTA h computes head h and one H-th
+// of every projection, outputs meet over DSMEM, the LayerNorms run on full
+// rows in every CTA. Around it, every CTA keeps the same state:
+//   - the embedding rows are built in every CTA (the same bits);
+//   - the head is split by columns: CTA h computes Vp/H of the Vp padded
+//     vocabulary columns, the logits go to every CTA over DSMEM, then one
+//     cluster barrier;
+//   - the search (log-softmax, top-K, completions, next beams, tokens and
+//     lineage) runs in every CTA on identical inputs in the same order, so
+//     every CTA holds the same tokens, lineage and scores and nothing is
+//     broadcast; rank 0 writes the answer.
+// The self-KV caches: CTA h writes and reads only head h's hd columns of its
+// image's lanes, so they need no cluster synchronisation. Its slice, (layers,
+// k|v, K, max_len, hd), stays in shared memory where it fits (K <= 3 at the
+// flagship: 73,728 B per layer at K = 3), as the TPU kernel keeps its caches
+// in VMEM; otherwise it goes to a global scratch (n_img, H, layers, k|v, K,
+// max_len, hd), each CTA's slice contiguous (geometry.k3_geometry chooses).
+// The memory K/V of head h (Tm x hd x 2 floats a layer) come from L2 at
+// every step, as in K2. The loop's exchanges are ordered by the layer's own
+// cluster barriers (see decoder_cluster.cuh) and the one after the head; a
+// last cluster barrier keeps every CTA's shared memory alive until no peer
+// can write it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "decoder_common.cuh"
+#include "decoder_cluster.cuh"  // the cluster layer, its shared-memory layout and helpers
 
 namespace {
 
@@ -49,8 +65,6 @@ constexpr float LOWEST = -3.402823466e38f;  // below every value, NEG_INF includ
 
 struct LayerPtrs {
   const float* w[N_WEIGHTS];
-  float* self_k;       // (n_img * K, max_len, D) scratch
-  float* self_v;
   const float* mem_k;  // (n_img, Tm, D)
   const float* mem_v;
 };
@@ -59,45 +73,64 @@ struct Args {
   LayerPtrs layer[MAX_LAYERS];
   const float* tok_emb;    // (V, D)
   const float* pos_emb;    // (>= max_len, D)
-  const float* out_w;      // (D, Vp), Vp = V rounded up to a multiple of 4
+  const float* out_w;      // (D, Vp), Vp = V rounded up to a multiple of 4 H
   const float* out_b;      // (Vp)
   const float* mem_valid;  // (n_img, Tm) 1/0
   int* tokens_out;         // (n_img, max_len + 2)
   float* scores_out;       // (n_img, K + 1): running scores, then the best completion's
-  int n_layers, D, H, F, Tm, V, Vp, max_len, sos, eos, pad;
+  float* scratch;          // global route: (n_img, H, n_layers, 2, K, max_len, hd) self caches; else null
+  int n_layers, D, H, F, Tm, V, Vp, max_len, sos, eos, pad, tc, on_chip;
 };
 
-// 4-byte words of the search state after the layer's shared memory
+// floats of one CTA's self-cache slice: every layer's k and v for K lanes x max_len slots x hd
+__host__ __device__ inline size_t cache_floats(int K, int D, int H, int max_len, int n_layers) {
+  return (size_t)n_layers * 2 * K * max_len * (D / H);
+}
+
+// 4-byte words of the search state after the layer's shared memory (and the caches on chip)
 size_t state_words(int K, int max_len, int Vp) {
   const size_t lp = (size_t)max_len + 2;
   return 2 * K * lp + 2 * (size_t)K * max_len + lp + (size_t)K * Vp + 2 * (size_t)K * K + 3 * K + 1;
 }
 
-size_t smem_bytes(int K, int D, int H, int F, int max_len, int Vp) {
-  return (layer_smem_floats(K, D, H, F) + state_words(K, max_len, Vp)) * 4;
+size_t smem_bytes(int K, int D, int H, int F, int max_len, int Vp, int n_layers, int on_chip, int tc) {
+  return (smem_floats(K, D, H, F, 1, tc) + (on_chip ? cache_floats(K, D, H, max_len, n_layers) : 0) +
+          state_words(K, max_len, Vp)) * 4;
 }
 
+// One cluster of H CTAs per image; blockIdx.x = img * H + head. One CTA per
+// SM: with the registers of two (80 a thread) the loop spills and runs 1.7x
+// slower (examples/k3_registers_torch.py, 8 x 3, Tm=128, max_len 64: 6.769 ms
+// at 168 registers, 11.593 ms at 80, NVIDIA H100 80GB HBM3, 700 W).
 template <int K>
-__global__ void __launch_bounds__(NT) fused_beam_decode_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
-  const int img = blockIdx.x;
-  const int D = a.D, ML = a.max_len, LP = a.max_len + 2, Vp = a.Vp;
+__global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // paired with the wait before the first DSMEM store
+  const int D = a.D, H = a.H, ML = a.max_len, LP = a.max_len + 2, Vp = a.Vp;
+  const int hd = D / H;
+  const int rank = (int)cluster.block_rank();  // the head
+  const int img = blockIdx.x / H;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const LayerSmem s = carve_layer_smem(smem, K, D, a.H, a.F);
-  int* tok = reinterpret_cast<int*>(smem + layer_smem_floats(K, D, a.H, a.F));  // [K][LP]
+  const Smem s = carve(smem, K, D, H, a.F, 1, a.tc);
+  const size_t slice = (size_t)K * ML * hd;  // one layer's k (or v) of this head
+  const size_t cache_n = cache_floats(K, D, H, ML, a.n_layers);
+  float* after = smem + smem_floats(K, D, H, a.F, 1, a.tc);
+  float* cache = a.on_chip ? after : a.scratch + ((size_t)img * H + rank) * cache_n;
+  float* logit = a.on_chip ? after + cache_n : after;                             // [K][Vp]
+  float* score = logit + K * Vp;                                                   // [K]
+  float* top_lp = score + K;                                                       // [K][K]
+  float* best_score = top_lp + K * K;                                              // [1]
+  int* tok = reinterpret_cast<int*>(best_score + 1);                               // [K][LP]
   int* tok_nx = tok + K * LP;                                                      // [K][LP]
   int* lin = tok_nx + K * LP;                                                      // [K][ML]
   int* lin_nx = lin + K * ML;                                                      // [K][ML]
   int* best_tok = lin_nx + K * ML;                                                 // [LP]
-  float* logit = reinterpret_cast<float*>(best_tok + LP);                          // [K][Vp]
-  float* score = logit + K * Vp;                                                   // [K]
-  float* top_lp = score + K;                                                       // [K][K]
-  int* top_id = reinterpret_cast<int*>(top_lp + K * K);                            // [K][K]
+  int* top_id = best_tok + LP;                                                     // [K][K]
   int* parent = top_id + K * K;                                                    // [K]
   int* new_tok = parent + K;                                                       // [K]
-  float* best_score = reinterpret_cast<float*>(new_tok + K);                       // [1]
 
   for (int i = tid; i < K * LP; i += NT) tok[i] = (i % LP == 0) ? a.sos : a.pad;
   for (int i = tid; i < K * ML; i += NT) lin[i] = i / ML;
@@ -107,18 +140,21 @@ __global__ void __launch_bounds__(NT) fused_beam_decode_kernel(const __grid_cons
   __syncthreads();
 
   LayerIO io;
-  io.mem_valid = a.mem_valid + (size_t)img * a.Tm;
-  io.lin_stride = ML;
-  io.img_row0 = img * K;
+  io.cache.row_stride = (size_t)ML * hd;
+  io.cache.t_stride = hd;
+  io.img_row0 = 0;
   io.lane0 = 0;
-  io.L = ML;
-  io.Tm = a.Tm;
+  io.lin_stride = ML;
+  io.mem_valid = a.mem_valid + (size_t)img * a.Tm;
   io.D = D;
-  io.H = a.H;
+  io.H = H;
   io.F = a.F;
+  io.S = 1;
+  io.Tm = a.Tm;
+  const int vw = Vp / H;  // this CTA's head columns: [rank vw, (rank + 1) vw)
 
   for (int step = 0; step < ML; ++step) {
-    // 1. embedding
+    // 1. embedding, full rows in every CTA
     for (int i = tid; i < K * D; i += NT) {
       const int r = i / D;
       const int d = i - r * D;
@@ -126,21 +162,23 @@ __global__ void __launch_bounds__(NT) fused_beam_decode_kernel(const __grid_cons
     }
     __syncthreads();
 
-    // 2. the decoder layers
+    // 2. the decoder layers on the cluster
     io.pos = step;
-    io.lineage = lin;
+    io.lin = lin;
     for (int li = 0; li < a.n_layers; ++li) {
       const LayerPtrs& lp = a.layer[li];
       io.w = lp.w;
-      io.self_k = lp.self_k;
-      io.self_v = lp.self_v;
+      io.cache.k = cache + 2 * li * slice;
+      io.cache.v = cache + (2 * li + 1) * slice;
       io.mem_k = lp.mem_k + (size_t)img * a.Tm * D;
       io.mem_v = lp.mem_v + (size_t)img * a.Tm * D;
-      decoder_layer<K>(s, io);
+      cluster_layer<K>(cluster, s, io, step == 0 && li == 0);
     }
 
-    // 3. the head
-    matvec<K>(a.out_w, a.out_b, s.x, D, D, Vp, logit, Vp, s.red, false);
+    // 3. the head: this CTA's columns, gathered in every CTA
+    matvec_cols<K>(a.out_w, Vp, rank * vw, vw, 0, vw, a.out_b, s.x, D, D, s.y, vw, s.red, false);
+    scatter_ranks<K>(cluster, 0, H, s.y, vw, logit, Vp, rank * vw, vw);
+    cluster.sync();
 
     // 4-5. log-softmax and top-K of each lane, one warp per lane
     if (warp < K) {
@@ -239,38 +277,92 @@ __global__ void __launch_bounds__(NT) fused_beam_decode_kernel(const __grid_cons
     lin_nx = tmp;
   }
 
-  const bool has_done = *best_score > NEG_INF / 2;
-  for (int t = tid; t < LP; t += NT) a.tokens_out[(size_t)img * LP + t] = has_done ? best_tok[t] : tok[t];
-  if (tid < K) a.scores_out[(size_t)img * (K + 1) + tid] = score[tid];
-  if (tid == 0) a.scores_out[(size_t)img * (K + 1) + K] = *best_score;
+  if (rank == 0) {
+    const bool has_done = *best_score > NEG_INF / 2;
+    for (int t = tid; t < LP; t += NT) a.tokens_out[(size_t)img * LP + t] = has_done ? best_tok[t] : tok[t];
+    if (tid < K) a.scores_out[(size_t)img * (K + 1) + tid] = score[tid];
+    if (tid == 0) a.scores_out[(size_t)img * (K + 1) + K] = *best_score;
+  }
+  cluster.sync();  // no CTA exits while a peer may still write its shared memory
 }
 
+// The launch of n_img clusters of H CTAs, or (query) the number of such
+// clusters the card can hold at once, into *resident.
 template <int K>
-cudaError_t launch(const Args& a, int n_img, cudaStream_t stream) {
-  const size_t smem = smem_bytes(K, a.D, a.H, a.F, a.max_len, a.Vp);
+cudaError_t launch(const Args& a, int n_img, cudaStream_t stream, int* resident = nullptr) {
+  const size_t smem = smem_bytes(K, a.D, a.H, a.F, a.max_len, a.Vp, a.n_layers, a.on_chip, a.tc);
   cudaError_t err = cudaFuncSetAttribute(fused_beam_decode_kernel<K>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_beam_decode_kernel<K><<<n_img, NT, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (a.H > 8) {
+    err = cudaFuncSetAttribute(fused_beam_decode_kernel<K>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_img * a.H);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.H;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (resident != nullptr) {
+    return cudaOccupancyMaxActiveClusters(resident, reinterpret_cast<const void*>(fused_beam_decode_kernel<K>),
+                                          &cfg);
+  }
+  void* args[] = {const_cast<Args*>(&a)};
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(fused_beam_decode_kernel<K>), args);
 }
 
 }  // namespace
 
-extern "C" int fused_beam_decode_smem_bytes(int K, int D, int H, int F, int max_len, int Vp) {
-  return (int)smem_bytes(K, D, H, F, max_len, Vp);
+extern "C" int fused_beam_decode_smem_bytes(int K, int D, int H, int F, int max_len, int Vp, int n_layers,
+                                            int on_chip, int tc) {
+  return (int)smem_bytes(K, D, H, F, max_len, Vp, n_layers, on_chip, tc);
+}
+
+// The clusters of one image each that the card holds at once with this
+// shared memory (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+extern "C" int fused_beam_decode_resident_clusters(int K, int D, int H, int F, int max_len, int Vp, int n_layers,
+                                                   int on_chip, int tc) {
+  Args a = {};
+  a.D = D;
+  a.H = H;
+  a.F = F;
+  a.max_len = max_len;
+  a.Vp = Vp;
+  a.n_layers = n_layers;
+  a.on_chip = on_chip;
+  a.tc = tc;
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (K) {
+    case 2: err = launch<2>(a, 1, nullptr, &n); break;
+    case 3: err = launch<3>(a, 1, nullptr, &n); break;
+    case 4: err = launch<4>(a, 1, nullptr, &n); break;
+    default: break;
+  }
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 extern "C" int fused_beam_decode_max_layers() { return MAX_LAYERS; }
 
 // ptrs: tok_emb, pos_emb, out_w, out_b, mem_valid, tokens_out, scores_out,
-// then for each layer its 18 weights (layer_weights order), self_k, self_v,
-// mem_k, mem_v. Contiguous f32 (int32 tokens_out) device pointers, 16-byte
-// aligned. Returns a cudaError_t.
+// scratch (null when on_chip), then for each layer its 18 weights
+// (layer_weights order), mem_k, mem_v. Contiguous f32 (int32 tokens_out)
+// device pointers, 16-byte aligned. One cluster of H CTAs per image (at most
+// 16); Vp a multiple of 4 H; D/H, F/H and tc multiples of 4. Returns a
+// cudaError_t.
 extern "C" int fused_beam_decode_launch(void* const* ptrs, int n_img, int K, int n_layers, int D, int H,
                                         int F, int Tm, int V, int Vp, int max_len, int sos, int eos,
-                                        int pad, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || max_len < 1 || Vp % 4 || V > Vp) {
+                                        int pad, int on_chip, int tc, void* stream) {
+  if (n_img < 1 || n_layers < 1 || n_layers > MAX_LAYERS || max_len < 1 || H < 1 || H > 16 || D % H ||
+      (D / H) % 4 || F % H || (F / H) % 4 || Vp % (4 * H) || V > Vp || tc < 4 || tc % 4 ||
+      (!on_chip && ptrs[7] == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -281,14 +373,13 @@ extern "C" int fused_beam_decode_launch(void* const* ptrs, int n_img, int K, int
   a.mem_valid = static_cast<const float*>(ptrs[4]);
   a.tokens_out = static_cast<int*>(ptrs[5]);
   a.scores_out = static_cast<float*>(ptrs[6]);
+  a.scratch = on_chip ? nullptr : static_cast<float*>(ptrs[7]);
   for (int li = 0; li < n_layers; ++li) {
-    void* const* p = ptrs + 7 + li * (N_WEIGHTS + 4);
+    void* const* p = ptrs + 8 + li * (N_WEIGHTS + 2);
     LayerPtrs& lp = a.layer[li];
     for (int i = 0; i < N_WEIGHTS; ++i) lp.w[i] = static_cast<const float*>(p[i]);
-    lp.self_k = static_cast<float*>(p[N_WEIGHTS]);
-    lp.self_v = static_cast<float*>(p[N_WEIGHTS + 1]);
-    lp.mem_k = static_cast<const float*>(p[N_WEIGHTS + 2]);
-    lp.mem_v = static_cast<const float*>(p[N_WEIGHTS + 3]);
+    lp.mem_k = static_cast<const float*>(p[N_WEIGHTS]);
+    lp.mem_v = static_cast<const float*>(p[N_WEIGHTS + 1]);
   }
   a.n_layers = n_layers;
   a.D = D;
@@ -301,6 +392,8 @@ extern "C" int fused_beam_decode_launch(void* const* ptrs, int n_img, int K, int
   a.sos = sos;
   a.eos = eos;
   a.pad = pad;
+  a.tc = tc;
+  a.on_chip = on_chip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
     case 2: return (int)launch<2>(a, n_img, s);

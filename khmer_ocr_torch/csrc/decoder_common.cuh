@@ -1,30 +1,9 @@
-// One post-LN decoder layer for the K beam lanes of one image, as device
-// routines shared by kernel K2 (decoder_layer_step.cu, one layer per launch)
-// and kernel K3 (decode_loop.cu, the whole beam decode in one launch).
-//
-// The layer, in order:
-//   1. packed self-QKV projection of the K rows;
-//   2. k, v written into the (rows, L, D) self caches at slot `pos`;
-//   3. self-attention over slots t <= pos, each slot read through the
-//      image-local beam lineage: k_read[r, t] = k[img_row0 + lin[r][t], t]
-//      (slot pos reads the lane's own new k, v from shared memory, so the
-//      cache write needs no barrier with the reads); greedy has no lineage;
-//   4. out-projection, residual, LayerNorm 1;
-//   5. cross-attention of every lane over the image's memory K/V (Tm, D),
-//      masked by mem_valid;
-//   6. out-projection, residual, LayerNorm 2;
-//   7. ReLU FFN D -> F -> D, residual, LayerNorm 3.
-// Softmax and all sums are f32.
-//
-//   - Every matrix-vector product: thread q owns four output columns
-//     (float4 loads of a weight row) for all K lanes; for narrow outputs the
-//     input dimension is split over thread groups whose partial sums are added
-//     in a fixed order. Every output column is summed in the same order, so
-//     two equal weight columns give bit-equal outputs.
-//   - Attention (self and cross) is one online-softmax routine over tiles of
-//     TT positions staged in shared memory (rows padded to D + 1 floats so
-//     that the per-head dot products are free of bank conflicts).
-//   - LayerNorm is one warp per lane row.
+// Constants and small device routines of the decoder layer that kernels K2
+// (decoder_layer_step.cu) and K3 (decode_loop.cu) share through the cluster
+// layer of decoder_cluster.cuh: the CTA size, the masking constant, the
+// LayerNorm epsilon, the order of the layer's 18 weights, warp reductions
+// and the residual LayerNorm on full rows (one warp per lane row, so every
+// CTA of a cluster computes the same bits from the same rows).
 
 #pragma once
 
@@ -33,7 +12,6 @@
 namespace dec {
 
 constexpr int NT = 384;   // threads per CTA
-constexpr int TT = 32;    // positions per attention tile (one per warp lane)
 constexpr float NEG_INF = -1e30f;
 constexpr float LN_EPS = 1e-5f;
 constexpr int N_WEIGHTS = 18;
@@ -54,88 +32,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// out[r][j] = bias[j] + sum_k in[r][k] * W[k][j] (optionally ReLU), for the K
-// rows r. W is (kin, n) row-major, n % 4 == 0. red holds the partial sums of
-// the split-k groups.
-template <int K>
-__device__ void matvec(const float* __restrict__ W, const float* __restrict__ bias,
-                       const float* in, int in_ld, int kin, int n, float* out, int out_ld,
-                       float* red, bool relu) {
-  const int nq = n >> 2;
-  int groups = NT / nq;
-  if (groups < 1) groups = 1;
-  const int tid = threadIdx.x;
-  if (groups == 1) {
-    for (int q = tid; q < nq; q += NT) {
-      float4 acc[K];
-#pragma unroll
-      for (int r = 0; r < K; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-      for (int k = 0; k < kin; ++k) {
-        const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)k * n) + q);
-#pragma unroll
-        for (int r = 0; r < K; ++r) {
-          const float a = in[r * in_ld + k];
-          acc[r].x = fmaf(a, w.x, acc[r].x);
-          acc[r].y = fmaf(a, w.y, acc[r].y);
-          acc[r].z = fmaf(a, w.z, acc[r].z);
-          acc[r].w = fmaf(a, w.w, acc[r].w);
-        }
-      }
-      const float4 b = __ldg(reinterpret_cast<const float4*>(bias) + q);
-#pragma unroll
-      for (int r = 0; r < K; ++r) {
-        float4 v = make_float4(acc[r].x + b.x, acc[r].y + b.y, acc[r].z + b.z, acc[r].w + b.w);
-        if (relu) {
-          v.x = fmaxf(v.x, 0.f); v.y = fmaxf(v.y, 0.f); v.z = fmaxf(v.z, 0.f); v.w = fmaxf(v.w, 0.f);
-        }
-        float* o = out + r * out_ld + 4 * q;
-        o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-      }
-    }
-    __syncthreads();
-    return;
-  }
-  const int kchunk = (kin + groups - 1) / groups;
-  if (tid < groups * nq) {
-    const int g = tid / nq;
-    const int q = tid - g * nq;
-    const int k0 = g * kchunk;
-    const int k1 = min(kin, k0 + kchunk);
-    float4 acc[K];
-#pragma unroll
-    for (int r = 0; r < K; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int k = k0; k < k1; ++k) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(W + (size_t)k * n) + q);
-#pragma unroll
-      for (int r = 0; r < K; ++r) {
-        const float a = in[r * in_ld + k];
-        acc[r].x = fmaf(a, w.x, acc[r].x);
-        acc[r].y = fmaf(a, w.y, acc[r].y);
-        acc[r].z = fmaf(a, w.z, acc[r].z);
-        acc[r].w = fmaf(a, w.w, acc[r].w);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < K; ++r) {
-      float* p = red + (g * K + r) * n + 4 * q;
-      p[0] = acc[r].x; p[1] = acc[r].y; p[2] = acc[r].z; p[3] = acc[r].w;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < K * n; i += NT) {
-    const int r = i / n;
-    const int j = i - r * n;
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += red[(g * K + r) * n + j];
-    float v = s + bias[j];
-    if (relu) v = fmaxf(v, 0.f);
-    out[r * out_ld + j] = v;
-  }
-  __syncthreads();
 }
 
 // x[r] = LayerNorm(x[r] + t[r]) for the K rows; one warp per row.
@@ -164,259 +60,6 @@ __device__ void residual_ln(float* x, const float* t, const float* __restrict__ 
     for (int d = lane; d < D; d += 32) xr[d] = (xr[d] - mean) * inv * s[d] + b[d];
   }
   __syncthreads();
-}
-
-// Shared-memory scratch of the attention routine.
-struct AttnSmem {
-  float* kt;     // [TT][D + 1]
-  float* vt;     // [TT][D + 1]
-  float* p;      // [K][H][TT]
-  float* m;      // [K][H]
-  float* l;      // [K][H]
-  float* corr;   // [K][H]
-};
-
-// Where the K and V rows of position t come from.
-struct RowSource {
-  // self-attention of one lane: lineage-gathered cache rows, slot pos from smem
-  const float* self_k;
-  const float* self_v;
-  const int* lin;        // lineage row of this lane, or nullptr
-  const float* own_k;    // this lane's new k, v (shared memory)
-  const float* own_v;
-  int img_row0, lane, L, pos;
-  // cross-attention: the image's memory rows
-  const float* mem_k;
-  const float* mem_v;
-  bool cross;
-
-  __device__ void rows(int t, int D, const float*& kr, const float*& vr) const {
-    if (cross) {
-      kr = mem_k + (size_t)t * D;
-      vr = mem_v + (size_t)t * D;
-    } else if (t == pos) {
-      kr = own_k;
-      vr = own_v;
-    } else {
-      const int src = lin ? lin[t] : lane;
-      const size_t off = ((size_t)(img_row0 + src) * L + t) * D;
-      kr = self_k + off;
-      vr = self_v + off;
-    }
-  }
-};
-
-// out[r] = softmax_t(q[r] . k_t / sqrt(hd)) @ v_t per head, for nq query rows
-// sharing one set of positions 0..T-1, as an online softmax over TT-position
-// tiles. valid (optional): 1/0 per position.
-__device__ void attend(const float* q, int q_ld, int nq, int T, const RowSource& src,
-                       const float* __restrict__ valid, float* out, const AttnSmem& sm, int D,
-                       int H) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int hd = D / H;
-  const int dp = D + 1;
-  const int d4 = D >> 2;
-  const float scale = 1.0f / sqrtf((float)hd);
-
-  for (int i = tid; i < nq * H; i += NT) {
-    sm.m[i] = NEG_INF;
-    sm.l[i] = 0.f;
-  }
-  for (int i = tid; i < nq * D; i += NT) out[i] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    const int n = min(TT, T - t0);
-    for (int idx = tid; idx < TT * d4; idx += NT) {
-      const int tt = idx / d4;
-      const int c = idx - tt * d4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (tt < n) {
-        const float* kr;
-        const float* vr;
-        src.rows(t0 + tt, D, kr, vr);
-        kv = reinterpret_cast<const float4*>(kr)[c];
-        vv = reinterpret_cast<const float4*>(vr)[c];
-      }
-      float* kd = sm.kt + tt * dp + 4 * c;
-      float* vd = sm.vt + tt * dp + 4 * c;
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
-      vd[0] = vv.x; vd[1] = vv.y; vd[2] = vv.z; vd[3] = vv.w;
-    }
-    __syncthreads();
-
-    // logits, position fastest so that a warp covers one (row, head)
-    for (int i = tid; i < nq * H * TT; i += NT) {
-      const int tt = i % TT;
-      const int rh = i / TT;
-      const int h = rh % H;
-      const int r = rh / H;
-      const float* qr = q + r * q_ld + h * hd;
-      const float* kr = sm.kt + tt * dp + h * hd;
-      float s = 0.f;
-      for (int e = 0; e < hd; ++e) s = fmaf(qr[e], kr[e], s);
-      const bool ok = tt < n && (valid == nullptr || valid[t0 + tt] > 0.f);
-      sm.p[i] = ok ? s * scale : NEG_INF;
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per (row, head); lane = position
-    for (int rh = warp; rh < nq * H; rh += NT / 32) {
-      const float v = sm.p[rh * TT + lane];
-      const bool ok = v != NEG_INF;
-      const float m_old = sm.m[rh];
-      const float m_new = fmaxf(m_old, warp_max(v));
-      const float e = ok ? expf(v - m_new) : 0.f;
-      const float sum = warp_sum(e);
-      sm.p[rh * TT + lane] = e;
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sm.corr[rh] = corr;
-        sm.l[rh] = sm.l[rh] * corr + sum;
-        sm.m[rh] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < nq * D; i += NT) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const int rh = r * H + d / hd;
-      const float* pr = sm.p + rh * TT;
-      float acc = out[i] * sm.corr[rh];
-      for (int tt = 0; tt < n; ++tt) acc = fmaf(pr[tt], sm.vt[tt * dp + d], acc);
-      out[i] = acc;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < nq * D; i += NT) {
-    const int r = i / D;
-    out[i] = out[i] / sm.l[r * H + (i - r * D) / hd];
-  }
-  __syncthreads();
-}
-
-// The shared-memory layout of one decoder layer for K lanes.
-struct LayerSmem {
-  float* x;    // [K][D] residual stream
-  float* q;    // [K][3D] self q, k, v; later the cross q
-  float* a;    // [K][D] attention output
-  float* t;    // [K][D] projection output
-  float* h;    // [K][F] FFN hidden
-  float* red;  // [K][4 * NT] split-k partial sums
-  AttnSmem att;
-};
-
-__host__ __device__ inline size_t layer_smem_floats(int K, int D, int H, int F) {
-  return (size_t)K * D * 6 + (size_t)K * F + (size_t)K * 4 * NT + 2 * (size_t)TT * (D + 1) +
-         (size_t)K * H * TT + 3 * (size_t)K * H;
-}
-
-__device__ inline LayerSmem carve_layer_smem(float* base, int K, int D, int H, int F) {
-  LayerSmem s;
-  s.x = base;
-  s.q = s.x + K * D;
-  s.a = s.q + K * 3 * D;
-  s.t = s.a + K * D;
-  s.h = s.t + K * D;
-  s.red = s.h + K * F;
-  s.att.kt = s.red + K * 4 * NT;
-  s.att.vt = s.att.kt + TT * (D + 1);
-  s.att.p = s.att.vt + TT * (D + 1);
-  s.att.m = s.att.p + K * H * TT;
-  s.att.l = s.att.m + K * H;
-  s.att.corr = s.att.l + K * H;
-  return s;
-}
-
-// What one layer of one image's K lanes reads and writes besides its shared
-// memory.
-struct LayerIO {
-  const float* const* w;   // the 18 weights, in the enum's order
-  float* self_k;           // (rows, L, D) caches, written at slot pos
-  float* self_v;
-  const float* mem_k;      // this image's memory K/V (Tm, D)
-  const float* mem_v;
-  const float* mem_valid;  // this image's (Tm) 1/0
-  const int* lineage;      // lineage row of this CTA's first lane (image-local parents), or nullptr
-  int lin_stride;          // ints between two lanes' lineage rows
-  int img_row0;            // cache row of the image's lane 0
-  int lane0;               // image-local lane of this CTA's first row
-  int L, Tm, pos, D, H, F;
-};
-
-// Steps 1-7 on the K lane rows in s.x (in place).
-template <int K>
-__device__ __forceinline__ void decoder_layer(const LayerSmem& s, const LayerIO& io) {
-  const int D = io.D, H = io.H, F = io.F;
-  const int tid = threadIdx.x;
-  const int row0 = io.img_row0 + io.lane0;
-
-  // 1. packed self-QKV
-  matvec<K>(io.w[QKV_W], io.w[QKV_B], s.x, D, D, 3 * D, s.q, 3 * D, s.red, false);
-
-  // 2. cache write at slot pos (the self-attention below reads slot pos
-  //    from shared memory, so no other thread depends on these stores)
-  for (int i = tid; i < K * D; i += NT) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const size_t off = ((size_t)(row0 + r) * io.L + io.pos) * D + d;
-    io.self_k[off] = s.q[r * 3 * D + D + d];
-    io.self_v[off] = s.q[r * 3 * D + 2 * D + d];
-  }
-
-  // 3. self-attention, one lane at a time over its lineage-gathered prefix
-  for (int r = 0; r < K; ++r) {
-    RowSource src;
-    src.self_k = io.self_k;
-    src.self_v = io.self_v;
-    src.lin = io.lineage ? io.lineage + (size_t)r * io.lin_stride : nullptr;
-    src.own_k = s.q + r * 3 * D + D;
-    src.own_v = s.q + r * 3 * D + 2 * D;
-    src.img_row0 = io.img_row0;
-    src.lane = io.lane0 + r;
-    src.L = io.L;
-    src.pos = io.pos;
-    src.mem_k = nullptr;
-    src.mem_v = nullptr;
-    src.cross = false;
-    attend(s.q + r * 3 * D, 3 * D, 1, io.pos + 1, src, nullptr, s.a + r * D, s.att, D, H);
-  }
-
-  // 4. out-projection, residual, LN1
-  matvec<K>(io.w[SO_W], io.w[SO_B], s.a, D, D, D, s.t, D, s.red, false);
-  residual_ln<K>(s.x, s.t, io.w[LN1_S], io.w[LN1_B], D);
-
-  // 5. cross-attention: all K lanes over the image's memory
-  matvec<K>(io.w[CQ_W], io.w[CQ_B], s.x, D, D, D, s.q, D, s.red, false);
-  {
-    RowSource src;
-    src.self_k = nullptr;
-    src.self_v = nullptr;
-    src.lin = nullptr;
-    src.own_k = nullptr;
-    src.own_v = nullptr;
-    src.img_row0 = io.img_row0;
-    src.lane = 0;
-    src.L = io.L;
-    src.pos = -1;
-    src.mem_k = io.mem_k;
-    src.mem_v = io.mem_v;
-    src.cross = true;
-    attend(s.q, D, K, io.Tm, src, io.mem_valid, s.a, s.att, D, H);
-  }
-
-  // 6. out-projection, residual, LN2
-  matvec<K>(io.w[CO_W], io.w[CO_B], s.a, D, D, D, s.t, D, s.red, false);
-  residual_ln<K>(s.x, s.t, io.w[LN2_S], io.w[LN2_B], D);
-
-  // 7. ReLU FFN, residual, LN3
-  matvec<K>(io.w[L1_W], io.w[L1_B], s.x, D, D, F, s.h, F, s.red, true);
-  matvec<K>(io.w[L2_W], io.w[L2_B], s.h, F, F, D, s.t, D, s.red, false);
-  residual_ln<K>(s.x, s.t, io.w[LN3_S], io.w[LN3_B], D);
 }
 
 }  // namespace dec

@@ -8,7 +8,9 @@ returns the best tokens (B, max_len + 2), <sos> first: the contract of
 ``return_scores=True`` also returns (B, K + 1) float32: the K running scores
 after the last step, then the best completion's normalised score (NEG_INF if
 there is none). A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises. The kernel runs one thread-block cluster of one CTA
+per attention head for each image (``geometry.k3_geometry``), the layer of
+kernel K2 at every step, the self caches in shared memory where they fit.
 
 ``should_use_megakernel`` is the gate ``beam_decode`` asks first. It is the JAX
 package's semantic envelope: opt-in ``"1"`` (``DecodeConfig.mega_mode``, None
@@ -27,7 +29,8 @@ import torch
 from ...config import DecodeConfig, ModelConfig
 from ...models.ocr_model import decode_step, init_decode_state, memory_kv, pack_decode_params
 from . import build
-from .decode_step import SMEM_LIMIT, WEIGHT_FIELDS, decoder_layer_step_plain
+from .decode_step import WEIGHT_FIELDS, decoder_layer_step_plain
+from .geometry import MAX_CLUSTER, SMEM_LIMIT, k3_geometry, k3_smem_bytes, k3_vocab_cols
 
 MIN_BEAM, MAX_BEAM, MAX_VOCAB, MAX_TM, MAX_LEN = 2, 4, 128, 128, 64
 
@@ -74,11 +77,28 @@ def fused_beam_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelCon
                       return_scores: bool = False):
     if memory.device.type == "cpu":
         return fused_beam_decode_plain(params, memory, memory_pad_mask, model_cfg, dec_cfg, return_scores)
-    return _launch(params, memory, memory_pad_mask, model_cfg, dec_cfg, return_scores)
+    return fused_beam_decode_kernel(params, memory, memory_pad_mask, model_cfg, dec_cfg, return_scores)
 
 
-def _launch(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
-            return_scores: bool):
+def resident_clusters(k: int, d: int, heads: int, f: int, max_len: int, vocab_cols: int, n_layers: int,
+                      on_chip: bool, tc: int) -> int:
+    """Clusters of one image each that the card holds at once for this K3
+    launch (the CUDA occupancy query): more images run in waves."""
+    fn = build.load("decode_loop").fused_beam_decode_resident_clusters
+    fn.argtypes = [ctypes.c_int] * 9
+    fn.restype = ctypes.c_int
+    n = fn(k, d, heads, f, max_len, vocab_cols, n_layers, int(on_chip), tc)
+    if n <= 0:
+        raise RuntimeError(f"fused_beam_decode: no cluster of {heads} CTAs fits the card with the self caches "
+                           f"{'on chip' if on_chip else 'in global memory'} (CUDA error {-n})")
+    return n
+
+
+def fused_beam_decode_kernel(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
+                             return_scores: bool = False, *, on_chip: bool | None = None):
+    """The kernel on CUDA tensors: one cluster of one CTA per head for each
+    image, the self caches in shared memory or in a global scratch as
+    ``geometry.k3_geometry`` says, or as ``on_chip`` says if given."""
     global launches
     name = "fused_beam_decode"
     b, tm, d = memory.shape
@@ -93,21 +113,30 @@ def _launch(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_c
         raise RuntimeError(f"{name}: memory must be a float32 CUDA tensor, got {memory.dtype} on {memory.device}")
     f = model_cfg.dec_ffn_dim
     heads = model_cfg.num_heads
-    if d % heads or d % 4 or f % 4:
-        raise ValueError(f"{name}: D={d}, F={f}, heads={heads} (needs D % heads == 0, D % 4 == F % 4 == 0)")
+    if d % heads or (d // heads) % 4 or f % heads or (f // heads) % 4 or heads > MAX_CLUSTER:
+        raise ValueError(f"{name}: D={d}, F={f}, heads={heads} (needs D/heads and F/heads multiples of 4, "
+                         f"at most {MAX_CLUSTER} heads)")
     if dec["pos_emb"].shape[0] < max_len:
         raise ValueError(f"{name}: {dec['pos_emb'].shape[0]} positions, max_len {max_len}")
+    n_layers = len(dec["layers_kernel"])
+    vp = k3_vocab_cols(v, heads)
     lib = build.load("decode_loop")
     lib.fused_beam_decode_max_layers.argtypes = []
-    lib.fused_beam_decode_smem_bytes.argtypes = [ctypes.c_int] * 6
-    n_layers = len(dec["layers_kernel"])
+    lib.fused_beam_decode_smem_bytes.argtypes = [ctypes.c_int] * 9
     max_layers = lib.fused_beam_decode_max_layers()
     if not 1 <= n_layers <= max_layers:
         raise ValueError(f"{name}: {n_layers} decoder layers, at most {max_layers}")
-    vp = (v + 3) // 4 * 4
-    smem = lib.fused_beam_decode_smem_bytes(k, d, heads, f, max_len, vp)
+    ctas, fits, tc = k3_geometry(k, d, heads, f, max_len, v, n_layers, tm)
+    on_chip = fits if on_chip is None else on_chip
+    smem = lib.fused_beam_decode_smem_bytes(k, d, heads, f, max_len, vp, n_layers, int(on_chip), tc)
+    want = k3_smem_bytes(k, d, heads, f, max_len, vp, n_layers, on_chip, tc)
+    if smem != want:
+        raise RuntimeError(f"{name}: the kernel needs {smem} bytes of shared memory, geometry.k3_smem_bytes "
+                           f"counts {want}")
     if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory, more than {SMEM_LIMIT}")
+        route = "on chip" if on_chip else "in global memory"
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory with the self caches {route}, "
+                         f"more than {SMEM_LIMIT}")
 
     out_w = torch.zeros(d, vp, dtype=torch.float32, device=memory.device)
     out_w[:, :v] = dec["out"]["w"]
@@ -116,23 +145,27 @@ def _launch(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_c
     mem_valid_f = (~memory_pad_mask).to(torch.float32).contiguous()
     tokens = torch.empty(b, max_len + 2, dtype=torch.int32, device=memory.device)
     scores = torch.empty(b, k + 1, dtype=torch.float32, device=memory.device)
-    tensors = [dec["tok_emb"], dec["pos_emb"], out_w, out_b, mem_valid_f, tokens, scores]
-    # self-KV caches: global scratch, each slot written by the kernel before it is read
+    # global route: each CTA's self-cache slice, (images, heads, layers, k|v, lanes, max_len, hd); every
+    # slot is written by the kernel before it is read
+    scratch = None if on_chip else torch.empty(b, ctas, n_layers, 2, k, max_len, d // heads, dtype=torch.float32,
+                                               device=memory.device)
+    tensors = [dec["tok_emb"], dec["pos_emb"], out_w, out_b, mem_valid_f, tokens, scores, scratch]
     for lw, (mk, mv) in zip(dec["layers_kernel"], memory_kv(params, memory)):
-        caches = torch.empty(2, b * k, max_len, d, dtype=torch.float32, device=memory.device)
-        tensors += [lw[key] for key in WEIGHT_FIELDS] + [caches[0], caches[1], mk, mv]
+        tensors += [lw[key] for key in WEIGHT_FIELDS] + [mk, mv]
     for t in tensors:
+        if t is None:
+            continue
         if t.device != memory.device or t.dtype not in (torch.float32, torch.int32):
             raise RuntimeError(f"{name}: an operand is {t.dtype} on {t.device}, not float32 on {memory.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every operand must be contiguous and 16-byte aligned")
-    arr = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    arr = (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr() for t in tensors])
     fn = lib.fused_beam_decode_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(memory.device).cuda_stream
     err = fn(ctypes.cast(arr, ctypes.c_void_p), b, k, n_layers, d, heads, f, tm, v, vp, max_len, dec_cfg.sos_idx,
-             dec_cfg.eos_idx, dec_cfg.pad_idx, stream)
+             dec_cfg.eos_idx, dec_cfg.pad_idx, int(on_chip), tc, stream)
     build.check(err, name)
     launches += 1
     if return_scores:

@@ -21,15 +21,13 @@ import torch
 
 from ...models.layers import decoder_layer_step as _layer_step_plain
 from . import build
-from .geometry import MAX_CLUSTER, k2_geometry
+from .geometry import MAX_CLUSTER, SMEM_LIMIT, k2_geometry
 
 WEIGHT_FIELDS = (
     "qkv_w", "qkv_b", "so_w", "so_b", "ln1_s", "ln1_b",
     "cq_w", "cq_b", "co_w", "co_b", "ln2_s", "ln2_b",
     "l1_w", "l1_b", "l2_w", "l2_b", "ln3_s", "ln3_b",
 )
-
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 CTA may use
 
 launches = 0  # kernel launches since the last reset_launches()
 

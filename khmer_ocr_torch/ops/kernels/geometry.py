@@ -1,9 +1,9 @@
-"""Launch geometry of kernels K1 and K2, chosen on the host from the shapes.
+"""Launch geometry of kernels K1, K2 and K3, chosen on the host from the shapes.
 
 Plain Python (no torch), so the CPU tests check these rules in any process.
 The measured numbers behind the constants come from
-examples/k1_routes_torch.py (K1) and chip_smoke.py's [K2] phase (K2) on an
-NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
+examples/k1_routes_torch.py (K1) and chip_smoke.py's [K2] and [K3] phases
+on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
 """
 
 from __future__ import annotations
@@ -92,3 +92,63 @@ def k2_split(clusters: int, num_heads: int, tm: int) -> int:
     0.0739; Tm=256 one image 0.0466 and 0.0464, 8 images 0.0560 and 0.0495)."""
     fits = 2 * num_heads <= MAX_CLUSTER and clusters * 2 * num_heads <= SMS
     return 2 if fits and tm >= SPLIT_FROM_TM else 1
+
+
+# --- shared memory of the cluster layer (csrc/decoder_cluster.cuh) ---------
+
+NT = 384               # threads per CTA (csrc/decoder_common.cuh)
+SMEM_LIMIT = 232448    # bytes of shared memory one H100 CTA may use
+K2_TC = 512            # K2's attention positions per chunk
+
+
+def layer_smem_floats(group: int, d: int, heads: int, f: int, split: int, tc: int) -> int:
+    """Floats of one CTA's shared memory for the cluster layer
+    (decoder_cluster.cuh::smem_floats): x, qkv, a, t, hid, part, y, the
+    chunk's weights and rows, the S > 1 merge slots, the split-k sums and the
+    softmax statistics."""
+    hd = d // heads
+    red = group * max(4 * NT, d, 3 * hd, f // heads)
+    xo = split * (group * hd + 4 * group) if split > 1 else 0
+    return (4 * group * d + 3 * group * hd + group * (f // (heads * split)) + heads * group * hd + 2 * group * tc
+            + xo + red + 4 * group)
+
+
+# --- K3, the whole beam decode ---------------------------------------------
+
+
+def k3_tc(tm: int, max_len: int) -> int:
+    """K3's attention chunk: every memory position and every cache slot in
+    one chunk, rounded up to a warp's 32 positions."""
+    return 32 * math.ceil(max(tm, max_len, 1) / 32)
+
+
+def k3_vocab_cols(vocab: int, num_heads: int) -> int:
+    """The head's padded width Vp: a multiple of 4 x heads, so that each CTA
+    computes Vp / heads columns in float4s (128 for vocab 124 and 8 heads)."""
+    return 4 * num_heads * math.ceil(vocab / (4 * num_heads))
+
+
+def k3_smem_bytes(k: int, d: int, heads: int, f: int, max_len: int, vocab_cols: int, n_layers: int,
+                  on_chip: bool, tc: int) -> int:
+    """Bytes of one K3 CTA's shared memory (decode_loop.cu::smem_bytes): the
+    cluster layer's, the head's self-cache slice of every layer when on
+    chip, and the search state."""
+    cache = n_layers * 2 * k * max_len * (d // heads) if on_chip else 0
+    lp = max_len + 2
+    state = 2 * k * lp + 2 * k * max_len + lp + k * vocab_cols + 2 * k * k + 3 * k + 1
+    return 4 * (layer_smem_floats(k, d, heads, f, 1, tc) + cache + state)
+
+
+def k3_geometry(k: int, d: int, heads: int, f: int, max_len: int, vocab: int, n_layers: int,
+                tm: int) -> tuple[int, bool, int]:
+    """(CTAs per cluster, self caches on chip, attention chunk) of one K3
+    launch: one cluster of one CTA per head for each image; CTA h keeps head
+    h's slice of every layer's self caches in shared memory when the whole
+    CTA fits the H100's 232,448 bytes (K <= 3 at the flagship), else in a
+    head-major global scratch. A CTA takes an SM's registers on either route,
+    so both hold the same clusters at once (15 at the flagship on an H100)
+    and the on-chip route is never the slower one."""
+    tc = k3_tc(tm, max_len)
+    vp = k3_vocab_cols(vocab, heads)
+    on_chip = k3_smem_bytes(k, d, heads, f, max_len, vp, n_layers, True, tc) <= SMEM_LIMIT
+    return heads, on_chip, tc

@@ -1,10 +1,11 @@
 """The kernel build's cache key, on the CPU (no nvcc needed).
 
 ``ops/kernels/build.py`` names each library by a hash of its source, the
-``csrc/`` headers the source includes and the nvcc flags. An edit to the
-header that kernels K2 and K3 share must give both a new library (a stale
-one would run the old layer), and leave the other kernels' libraries as they
-are. The module imports no torch, so these run in the pytest process.
+``csrc/`` headers the source includes and the nvcc flags. An edit to either
+header that kernels K2 and K3 share (the cluster layer and the constants and
+LayerNorm it includes) must give both a new library (a stale one would run
+the old layer), and leave the other kernels' libraries as they are. The
+module imports no torch, so these run in the pytest process.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import pytest
 
 from khmer_ocr_torch.ops.kernels import build
 
-SHARED = "decoder_common.cuh"
+SHARED = ("decoder_common.cuh", "decoder_cluster.cuh")
 USERS = ("decoder_layer_step", "decode_loop")
 
 
@@ -23,14 +24,16 @@ USERS = ("decoder_layer_step", "decode_loop")
 def test_source_and_its_headers(name):
     files = [f.name for f in build.source_files(name)]
     assert files[0] == build.SOURCES[name] and all((build.CSRC_DIR / f).exists() for f in files)
-    assert (SHARED in files) == (name in USERS)
+    for header in SHARED:
+        assert (header in files) == (name in USERS)
 
 
-def test_header_edit_rebuilds_exactly_its_users(tmp_path, monkeypatch):
+@pytest.mark.parametrize("header", SHARED)
+def test_header_edit_rebuilds_exactly_its_users(tmp_path, monkeypatch, header):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC_DIR, csrc)
     monkeypatch.setattr(build, "CSRC_DIR", csrc)
     before = {name: build.library_path(name) for name in build.SOURCES}
-    (csrc / SHARED).write_text((csrc / SHARED).read_text() + "\n// edited\n")
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
     assert {name for name in build.SOURCES if before[name] != after[name]} == set(USERS)
