@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-  2. build: the four CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
+  2. build: the five CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
      one nvcc each, all at once;
   3. K1 (LSTM recurrence) against its plain version and cuDNN's nn.LSTM at
      H=192, one direction and two stacked directions, (B, T) in {(1, 4096),
@@ -32,7 +32,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      timed beside the host-loop K2 path on the same inputs;
   6. K4 (dynamic shared memory probe): the probe's answer equals the device
      attribute within 1 KB, the next size is refused, row 0 equals the plain
-     version;
+     version; one empty launch and synchronise is timed as its floor;
   7. end to end through Predictor.predict_batch_tokens at the flagship
      configuration (seeded weights), each request with every launch count set
      to 0 just before it and read just after: beam 3 at max_len 64 and 256
@@ -42,8 +42,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
      takes the three batches of 1-4 chunks, K2 the rest); beam 5; the vgg and
      resnet backbones (no BiLSTM) on the 12 short lines through K3, memory and
      tokens against the plain path;
-  8. one JSON line with every kernel's numbers;
-  9. the last line: {"ok": true, "device": {...}}.
+  8. training at the flagship configuration (seeded weights): K1 with its
+     cell-state output and K1b (the LSTM's adjoint) against their plain
+     versions at (directions, B, T) = (2, 32, 512), (2, 8, 128), (1, 1,
+     4096), h, c, dz and dW_hh within 1e-4 (K1b beside cuDNN's nn.LSTM
+     backward); one step of batch 32 x 16 chunks, 256 labels, by the kernel
+     path against the plain LSTM path on the card (loss 1e-5 relative,
+     gradients 1e-4 x max(1, |ref|)), one K1 and one K1b launch a step;
+     three steps against the JAX package's golden losses and gradient norms
+     (khmer_ocr_torch/assets/train_golden.json, 1e-4 relative); 50 steps
+     on 4 samples overfit; two epochs of train() on 256 synthetic lines with
+     device augmentation and dropout, checkpoints and a resume;
+  9. one JSON line with every kernel's numbers;
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Times come from CUDA events after warm-up (K2's device time from a
 replayed CUDA graph of launches). ``bound_ms`` is the larger of the
@@ -233,6 +244,124 @@ def phase_k1(torch):
         print(f"[K1] {shape:18s}: max|diff| {err:.2e} (cuDNN LSTM vs plain {lib_err:.2e}); kernel, {name} route "
               f"{chosen}: {ms:.3f} ms ({other} route {routes[other]}: {times[other]:.3f} ms), plain {plain_ms:.3f} "
               f"ms, cuDNN nn.LSTM {library_ms:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
+    return rows, worst
+
+
+# (directions, B, T) of the training path's recurrences: the train step's 16-chunk bucket at batch 32, a
+# 4-chunk bucket at batch 8, and the longest line one direction at a time
+TRAIN_LSTM_SHAPES = ((2, 32, 512), (2, 8, 128), (1, 1, 4096))
+
+
+def lstm_inputs(torch, gen, ndir, b, t, hid=192):
+    lead = (ndir,) if ndir == 2 else ()
+    xg = torch.randn(*lead, b, t, 4 * hid, device="cuda", generator=gen) * 0.5
+    w = (torch.rand(*lead, hid, 4 * hid, device="cuda", generator=gen) * 2 - 1) / hid ** 0.5
+    return xg, w
+
+
+def phase_k1_cells(torch):
+    """K1 with its cell-state output (the training forward) against the
+    plain version at the training path's shapes, by the route
+    geometry.k1_route picks; timed with and without the cells."""
+    from khmer_ocr_torch.ops.kernels import geometry
+    from khmer_ocr_torch.ops.kernels import lstm as K
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, worst = [], 0.0
+    for ndir, b, t in TRAIN_LSTM_SHAPES:
+        xg, w = lstm_inputs(torch, gen, ndir, b, t)
+        shape = f"{ndir}x B={b} T={t}" if ndir == 2 else f"B={b} T={t}"
+        with torch.no_grad():
+            h_ref, c_ref = K.lstm_recurrence_plain(xg, w, with_cell=True)
+            h, c = K.lstm_recurrence(xg, w, with_cell=True)
+            torch.cuda.synchronize()
+            err = max((h - h_ref).abs().max().item(), (c - c_ref).abs().max().item())
+            if not err <= TOL or not (torch.isfinite(h).all() and torch.isfinite(c).all()):
+                fail(f"K1 with cells {shape}: max |kernel - plain| over h and c = {err:.3e} > {TOL}")
+            if not torch.equal(h, K.lstm_recurrence(xg, w)):
+                fail(f"K1 {shape}: h with cells differs from h without")
+            reps = 3 if b * t >= 4096 else 10
+            ms_cells = cuda_ms(torch, lambda: K.lstm_recurrence(xg, w, with_cell=True), reps)
+            ms = cuda_ms(torch, lambda: K.lstm_recurrence(xg, w), reps)
+        worst = max(worst, err)
+        g = 4 * 192
+        nbytes = 4 * ndir * (b * t * g + 192 * g + 2 * b * t * 192)
+        ops = ndir * (2 * b * t * 192 * g + 20 * b * t * 192)
+        bms, by = bound_ms(nbytes, ops)
+        route = geometry.k1_route(b, 192, ndir)
+        rows.append(dict(shape=f"{shape}, with cells", route=route, max_abs_err=err, ms=ms_cells, no_cells_ms=ms,
+                         bound_ms=bms, bound_by=by))
+        print(f"[K1] {shape:18s} with cells: max|diff| h, c {err:.2e}; route {route}: {ms_cells:.3f} ms with cells, "
+              f"{ms:.3f} ms without; bound {bms:.4f} ms ({by}), {bms / ms_cells:.2%} of roofline")
+    return rows, worst
+
+
+def library_lstm_backward_ms(torch, xg, w, dh, reps):
+    """cuDNN's backward: out.backward(g) of the bidirectional (or single)
+    nn.LSTM of library_lstm after its forward, input weights and biases
+    frozen, timed with CUDA events around the backward alone."""
+    lib, x, layout = library_lstm(torch, xg, w)
+    for name, prm in lib.named_parameters():
+        prm.requires_grad_(name.startswith("weight_hh"))
+    x = x.detach().requires_grad_(True)
+    g = torch.cat([dh[0], torch.flip(dh[1], dims=(1,))], dim=-1) if xg.dim() == 4 else dh
+    total = 0.0
+    for i in range(reps + 1):
+        out = lib(x)[0]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.backward(g)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end) if i else 0.0  # the first is warm-up
+    return total / reps
+
+
+def phase_k1b(torch):
+    """K1b (the LSTM's adjoint) against the plain backward at the training
+    path's shapes: dz, and the dxg and dW_hh LSTMRecurrence makes of it;
+    timed beside the plain version, the whole backward and cuDNN's."""
+    from khmer_ocr_torch.ops.kernels import geometry
+    from khmer_ocr_torch.ops.kernels import lstm as K
+    from khmer_ocr_torch.ops.kernels import lstm_backward as KB
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, worst = [], 0.0
+    for ndir, b, t in TRAIN_LSTM_SHAPES:
+        xg, w = lstm_inputs(torch, gen, ndir, b, t)
+        dh = torch.randn(*xg.shape[:-1], 192, device="cuda", generator=gen)
+        shape = f"{ndir}x B={b} T={t}" if ndir == 2 else f"B={b} T={t}"
+        with torch.no_grad():
+            h, c = K.lstm_recurrence(xg, w, with_cell=True)
+            hp = torch.cat([torch.zeros_like(h[..., :1, :]), h[..., :-1, :]], dim=-2).reshape(*h.shape[:-3], -1, 192)
+            gates = (xg.reshape(*hp.shape[:-1], -1) + hp @ w).reshape(xg.shape)
+            dz_ref = KB.lstm_adjoint_plain(gates, c, dh, w)
+            dz = KB.lstm_adjoint(gates, c, dh, w)
+            torch.cuda.synchronize()
+            dw_ref, dw = (hp.transpose(-1, -2) @ z.reshape(*hp.shape[:-1], -1) for z in (dz_ref, dz))
+            err = 0.0
+            for what, got, ref in (("dz = dxg", dz, dz_ref), ("dW_hh", dw, dw_ref)):
+                e = (got - ref).abs().max().item()
+                if not e <= TOL * max(1.0, ref.abs().max().item()) or not torch.isfinite(got).all():
+                    fail(f"K1b {shape}: {what} max |kernel - plain| = {e:.3e} > {TOL} x max(1, |ref|)")
+                err = max(err, e)
+            reps = 3 if b * t >= 4096 else 10
+            ms = cuda_ms(torch, lambda: KB.lstm_adjoint(gates, c, dh, w), reps)
+            plain_ms = cuda_ms(torch, lambda: KB.lstm_adjoint_plain(gates, c, dh, w), 1, warmup=0)
+        xr, wr = xg.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = K.LSTMRecurrence.apply(xr, wr)
+        backward_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (xr, wr), dh, retain_graph=True), reps)
+        library_ms = library_lstm_backward_ms(torch, xg, w, dh, reps)
+        worst = max(worst, err)
+        g = 4 * 192
+        nbytes = 4 * ndir * (b * t * (g + 2 * 192 + g) + 192 * g)
+        ops = ndir * (2 * b * t * g * 192 + 30 * b * t * 192)
+        bms, by = bound_ms(nbytes, ops)
+        rows.append(dict(shape=shape, rows=geometry.k1b_rows(b, ndir), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         backward_ms=backward_ms, library_ms=library_ms, bound_ms=bms, bound_by=by))
+        print(f"[K1b] {shape:18s}: max|diff| dz, dW_hh {err:.2e}; kernel ({geometry.k1b_rows(b, ndir)} rows a CTA) "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms; whole backward (gates, K1b, dW_hh) {backward_ms:.3f} ms; "
+              f"cuDNN nn.LSTM backward {library_ms:.3f} ms; bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
     return rows, worst
 
 
@@ -510,6 +639,9 @@ def phase_k3(torch, params, cfg):
 def phase_k4(torch):
     """K4's own path: the probe's ladder and bisection, launches counted;
     its answer against the device attribute; row 0 against the plain version."""
+    import ctypes
+
+    from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.ops.kernels import smem_probe as K
 
     K.reset_launches()
@@ -530,9 +662,229 @@ def phase_k4(torch):
     ms = cuda_ms(torch, lambda: K.smem_probe(x, best), 10)
     plain_ms = cuda_ms(torch, lambda: K.smem_probe_plain(x), 10)
     bms, by = bound_ms(2 * x.numel() * 4, 2 * x.shape[1])
+    # the floor under a launch-and-synchronise: one empty kernel, timed the same way
+    empty = build.load("smem_probe").empty_launch
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    build.check(empty(stream), "empty_launch")
+    empty_ms = cuda_ms(torch, lambda: empty(stream), 10)
+    print(f"[K4] {ms:.4f} ms a probe launch (zeros_like, attribute, launch, synchronise); one empty launch and "
+          f"synchronise {empty_ms:.4f} ms; plain {plain_ms:.4f} ms")
     return dict(shape=f"(8, 128) through {best} B", max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bms, bound_by=by, launches=launches, max_bytes=best, refused_bytes=refused,
-                attribute_bytes=attr)
+                attribute_bytes=attr, empty_launch_ms=empty_ms)
+
+
+class PlainLSTM:
+    """Within this block the LSTM's training path (forward with cells and
+    the adjoint) runs the plain versions of K1 and K1b on the card."""
+
+    def __enter__(self):
+        from khmer_ocr_torch.ops.kernels import lstm, lstm_backward
+
+        self._saved = (lstm.lstm_recurrence, lstm_backward.lstm_adjoint)
+        lstm.lstm_recurrence = lstm.lstm_recurrence_plain
+        lstm_backward.lstm_adjoint = lstm_backward.lstm_adjoint_plain
+        return self
+
+    def __exit__(self, *exc):
+        from khmer_ocr_torch.ops.kernels import lstm, lstm_backward
+
+        lstm.lstm_recurrence, lstm_backward.lstm_adjoint = self._saved
+        return False
+
+
+def train_counts():
+    """Launch counts of the kernels the train step runs (K1, K1b) and of the others."""
+    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, lstm_backward, smem_probe
+
+    return {"k1": lstm.launches, "k1b": lstm_backward.launches,
+            "other": decode_step.launches + decode_loop.launches + smem_probe.launches}
+
+
+def reset_counts():
+    import torch
+
+    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, lstm_backward, smem_probe
+
+    torch.cuda.synchronize()
+    for mod in (lstm, lstm_backward, decode_step, decode_loop, smem_probe):
+        mod.reset_launches()
+
+
+def padded_lines_batch(chunk_counts, seed: int, labels) -> dict:
+    """synthetic_samples' lines, white-padded to the widest line's chunk
+    bucket, with the given labels (the golden file's batch)."""
+    import numpy as np
+
+    from khmer_ocr_torch.config import PreprocessConfig
+    from khmer_ocr_torch.data.synthetic import synthetic_lines
+
+    pre = PreprocessConfig()
+    wb = (max(chunk_counts) - 1) * pre.chunk_stride + pre.chunk_width
+    lines = synthetic_lines(chunk_counts, seed)
+    out = np.full((len(lines), pre.img_height, wb), 255, np.uint8)
+    widths = np.array([min(l.shape[1], wb) for l in lines], np.int32)
+    for i, (line, w) in enumerate(zip(lines, widths)):
+        out[i, :, :w] = line[:, :w]
+    counts = np.array([pre.num_chunks(int(w)) for w in widths], np.int32)
+    return {"lines": out, "widths": widths, "chunk_counts": counts, "labels": np.asarray(labels, np.int32)}
+
+
+def bucket_batch(chunks: int, batch: int, max_label: int, seed: int):
+    """One batch of ``batch`` synthetic lines of ``chunks`` chunks through the
+    port's LineDataset ("lines" layout), labels cut to ``max_label``."""
+    import numpy as np
+
+    from khmer_ocr_torch.data.synthetic import synthetic_samples
+    from khmer_ocr_torch.train.data import LineDataset
+
+    ds = LineDataset(synthetic_samples([chunks] * batch, seed), device_augment=True)
+    return next(ds.epoch_batches(batch, np.random.default_rng(seed), max_label_len=max_label))
+
+
+def phase_train(torch, smi):
+    """The training path at the flagship widths (seeded params): (1) one
+    step's loss and gradients by the kernel path against the plain LSTM path
+    on the card, batch 32 of 16-chunk lines with 256-long labels, dropout 0,
+    with exactly one K1 and one K1b launch a step; (2) three steps against
+    the JAX package's golden losses and gradient norms; (3) 50 steps on 4
+    samples overfit (dropout 0); (4) two epochs of train() on 256 synthetic lines,
+    device augmentation and dropout 0.1, checkpoint and resume. Returns a
+    train step's K1 and K1b launches."""
+    import contextlib
+    import logging
+    import tempfile
+
+    from khmer_ocr_torch.config import ModelConfig, OCRConfig, TrainConfig
+    from khmer_ocr_torch.train.cli import synthetic_dataset
+    from khmer_ocr_torch.train.loop import train
+    from khmer_ocr_torch.train.step import batch_to_device, init_train_state, loss_fn, make_train_step, tree_leaves
+
+    cfg0 = ModelConfig(dropout=0.0)
+    batch = batch_to_device(bucket_batch(16, 32, 256, 0).as_dict(), "cuda")
+    print(f"[train] parity batch: lines {tuple(batch['lines'].shape)}, labels {tuple(batch['labels'].shape)}, "
+          f"chunk counts {batch['chunk_counts'].unique().tolist()}")
+    torch.backends.cudnn.deterministic = True  # the two paths' backbones must take the same sums
+    runs = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", PlainLSTM())):
+        state = init_train_state(cfg0, 0, "cuda")
+        leaves = tree_leaves(state.params)
+        with ctx:
+            reset_counts()
+            loss, _ = loss_fn(state.params, state.batch_stats, batch, cfg0)
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            runs[name] = (loss.item(), grads, train_counts())
+    torch.backends.cudnn.deterministic = False
+    (lk, gk, ck), (lp, gp, cp) = runs["kernel"], runs["plain"]
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = max(((a - b).abs().max() / max(1.0, b.abs().max().item())).item() for a, b in zip(gk, gp))
+    print(f"[train] one step, kernel path vs plain LSTM path: loss {lk:.6f} vs {lp:.6f} (rel {loss_err:.1e}), "
+          f"worst gradient leaf |diff| / max(1, |ref|) {grad_err:.1e}; launches K1 {ck['k1']}, K1b {ck['k1b']} "
+          f"(plain path: {cp['k1']}, {cp['k1b']})")
+    if not (loss_err <= 1e-5 and grad_err <= TOL) or not all(torch.isfinite(g).all() for g in gk):
+        fail(f"train step: kernel path vs plain path loss rel {loss_err:.2e}, gradients {grad_err:.2e}")
+    if (ck["k1"], ck["k1b"], ck["other"], cp["k1"], cp["k1b"]) != (1, 1, 0, 0, 0):
+        fail(f"train step: launches {ck} (plain path {cp}), expected one K1 and one K1b")
+    del runs, gk, gp
+
+    # a whole train step (forward, backward, Adam) with counts around it, timed after a warm-up
+    state, step = init_train_state(cfg0, 0, "cuda"), make_train_step(cfg0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = step(state, batch, gen, 1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    n_steps = 3
+    for _ in range(n_steps):
+        state, m = step(state, batch, gen, 1e-4)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_steps
+    c = train_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[train] train_step, batch 32 x 16 chunks, 256 labels: {step_s * 1e3:.1f} ms a step "
+          f"({32 / step_s:.1f} lines/s), launches over {n_steps} steps: K1 {c['k1']}, K1b {c['k1b']}; "
+          f"peak memory {peak:.2f} GiB; loss {m['loss'].item():.4f} on {smi}")
+    if (c["k1"], c["k1b"], c["other"]) != (n_steps, n_steps, 0):
+        fail(f"train_step: launches {c} over {n_steps} steps, expected one K1 and one K1b a step")
+    launches = {"k1_launches": c["k1"] // n_steps, "k1b_launches": c["k1b"] // n_steps}
+    del state, batch
+
+    # golden: the JAX package's three steps (CPU) from the same seeded params and batch
+    golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "train_golden.json").read_text())
+    gcfg = ModelConfig(dropout=0.0)
+    gbatch = batch_to_device(padded_lines_batch(golden["chunk_counts"], golden["lines_seed"], golden["labels"]), "cuda")
+    state, step = init_train_state(gcfg, golden["seed"], "cuda"), make_train_step(gcfg)
+    got = {"losses": [], "grad_norms": []}
+    for lr in golden["lrs"]:
+        state, m = step(state, gbatch, torch.Generator(device="cuda").manual_seed(0), lr)
+        got["losses"].append(m["loss"].item())
+        got["grad_norms"].append(m["grad_norm"].item())
+    err = max(abs(a - b) / abs(b) for k in got for a, b in zip(got[k], golden[k]))
+    print(f"[train] golden: losses {[round(v, 6) for v in got['losses']]} vs {[round(v, 6) for v in golden['losses']]}, "
+          f"grad norms {[round(v, 5) for v in got['grad_norms']]} vs {[round(v, 5) for v in golden['grad_norms']]}; "
+          f"worst rel {err:.1e}")
+    if not err <= 1e-4:
+        fail(f"train golden: worst relative difference {err:.2e} > 1e-4")
+
+    # overfit: 50 steps on 4 samples at lr 1e-3; dropout 0, whose masks made the last loss swing between 3%
+    # and 8% of the first across runs
+    obatch = batch_to_device(bucket_batch(2, 4, 64, 7).as_dict(), "cuda")
+    state, step = init_train_state(cfg0, 0, "cuda"), make_train_step(cfg0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = []
+    for _ in range(50):
+        state, m = step(state, obatch, gen, 1e-3)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    print(f"[train] overfit, 4 samples, 50 steps at lr 1e-3: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({losses[-1] / losses[0]:.1%} of the first)")
+    if not losses[-1] < 0.1 * losses[0]:
+        fail(f"train overfit: {losses[0]:.4f} -> {losses[-1]:.4f}, not below 10%")
+    del state
+
+    # two epochs of the port's train() on 256 synthetic lines, then a resume from the first checkpoint
+    ocfg = OCRConfig(train=TrainConfig(batch_size=32, checkpoint_every_epochs=1))
+    dataset = synthetic_dataset(256, 0, ocfg.train)
+    logged = []
+    handler = logging.Handler()
+    handler.emit = lambda r: logged.append(r.getMessage())
+    logging.getLogger("khmer_ocr_torch.train.loop").addHandler(handler)
+    logging.getLogger("khmer_ocr_torch.train.loop").setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train(dataset, ocfg, tmp / "run", num_epochs=2, log_every=4, eye_test_every=8,
+                      metrics_path=tmp / "metrics.jsonl")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = train_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        epochs = [json.loads(line) for line in (tmp / "metrics.jsonl").read_text().splitlines()]
+        print(f"[train] train(): 2 epochs of 256 lines, batch 32, device augment p 0.8, dropout 0.1: {state.step} steps "
+              f"in {wall:.1f} s ({state.step / wall:.2f} steps/s, {state.step * 32 / wall:.1f} lines/s with "
+              f"padding repeats); per epoch {[round(e['lines_per_sec'], 1) for e in epochs]} lines/s, mean loss "
+              f"{[round(e['mean_loss'], 4) for e in epochs]}; launches K1 {c['k1']}, K1b {c['k1b']}; peak memory "
+              f"{peak:.2f} GiB")
+        eye_tests = sum(e["batches"] // 8 for e in epochs)  # each an inference encode: one K1 launch
+        if (c["k1"], c["k1b"], c["other"]) != (state.step + eye_tests, state.step, 0):
+            fail(f"train(): launches {c} for {state.step} steps and {eye_tests} eye tests")
+        if not all((tmp / "run" / f"epoch{e:03d}" / "state.pt").exists() for e in (1, 2)):
+            fail("train(): checkpoints missing")
+        resumed = train(dataset, ocfg, tmp / "resumed", num_epochs=2, resume_from=tmp / "run" / "epoch001",
+                        metrics_path=tmp / "resumed.jsonl")
+        again = json.loads((tmp / "resumed.jsonl").read_text().splitlines()[-1])
+        loss_rel = abs(again["mean_loss"] - epochs[1]["mean_loss"]) / epochs[1]["mean_loss"]
+        print(f"[train] resume from epoch001: epoch {again['epoch']} only, to step {resumed.step} (uninterrupted run "
+              f"{state.step}); its mean loss {again['mean_loss']:.5f} vs {epochs[1]['mean_loss']:.5f} (rel "
+              f"{loss_rel:.1e}; cuDNN's backward sums in a run-dependent order)")
+        if (resumed.step != state.step or again["epoch"] != 2 or not any("resumed from" in m for m in logged)
+                or not loss_rel <= 1e-3):
+            fail(f"train(): resume reached step {resumed.step} (expected {state.step}), loss rel {loss_rel:.2e}")
+    return launches
 
 
 def strip(row) -> list[int]:
@@ -745,6 +1097,8 @@ def main() -> int:
     gpu_name, smi = phase_device(torch)
     phase_build()
     k1_rows, k1_err = phase_k1(torch)
+    k1_cell_rows, k1_cell_err = phase_k1_cells(torch)
+    k1b_rows, k1b_err = phase_k1b(torch)
 
     from khmer_ocr_torch.config import ModelConfig
     from khmer_ocr_torch.convert.from_jax import params_from_jax, seeded_params
@@ -758,9 +1112,11 @@ def main() -> int:
     k3_rows, k3_err, k3_resident = phase_k3(torch, state, ModelConfig())
     k4 = phase_k4(torch)
     e2e = phase_e2e(torch, gpu_name, smi)
+    tr = phase_train(torch, smi)
 
     main_len = min(k for k in e2e if isinstance(k, int))
     k1_main = next(r for r in k1_rows if r["shape"] == "2x B=8 T=1024")
+    k1b_main = next(r for r in k1b_rows if r["shape"] == "2x B=32 T=512")
     k2_main = next(r for r in k2_rows if r["shape"] == "8x3 w=64 Tm=256")
     k3_main = next(r for r in k3_rows if r["shape"] == "8x3 Tm=128 max_len=64")
 
@@ -770,8 +1126,13 @@ def main() -> int:
                     launches=launches, max_abs_err=err, **{k: main_row[k] for k in keys}, **extra, shapes=rows)
 
     kernels = [
+        # launches: the beam-3 request (inference); the train step launches it once too (train_launches)
         entry("lstm_recurrence", "lstm_recurrence.cu", tpu_kernel_site("ops/pallas/lstm.py", "lstm_recurrence"),
-              e2e[main_len]["k1"], k1_err, k1_main, k1_rows),
+              e2e[main_len]["k1"], max(k1_err, k1_cell_err), k1_main, k1_rows + k1_cell_rows,
+              train_launches=tr["k1_launches"]),
+        # launches: one train step's (the training path)
+        entry("lstm_adjoint", "lstm_backward.cu", tpu_kernel_site("ops/pallas/lstm.py", "_vjp_bwd"),
+              tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"]),
         entry("decoder_layer_step", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
               k2_err, k2_main, k2_rows),
@@ -782,7 +1143,8 @@ def main() -> int:
               global_ms=k3_main["global_ms"], resident_clusters=k3_resident),
         # launches: the probe's ladder and bisection, K4's path
         entry("smem_probe", "smem_probe.cu", tpu_kernel_site("probe_vmem.py", "try_mb"), k4["launches"],
-              k4["max_abs_err"], k4, [], max_bytes=k4["max_bytes"], attribute_bytes=k4["attribute_bytes"]),
+              k4["max_abs_err"], k4, [], max_bytes=k4["max_bytes"], attribute_bytes=k4["attribute_bytes"],
+              empty_launch_ms=k4["empty_launch_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

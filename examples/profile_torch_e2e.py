@@ -3,6 +3,7 @@
 
     python3 examples/profile_torch_e2e.py [--max-len 64] [--trace trace.json]
     KHMER_OCR_MEGA_DECODE=1 python3 examples/profile_torch_e2e.py   # batches of 1-4 chunks through K3
+    python3 examples/profile_torch_e2e.py --train                   # the train step instead
 
 Runs chip_smoke.py's end-to-end workload (flagship widths, seeded weights,
 the 18 synthetic lines of khmer_ocr_torch/assets/smoke_golden.json, batch 8,
@@ -15,6 +16,13 @@ beam 3) through ``khmer_ocr_torch``'s Predictor and prints:
     request's unprofiled wall time, device launches per host-loop decode
     step, and device time by kernel family (K1, K2, K3, convolution, matmul,
     other).
+
+With ``--train``, the train step at the flagship widths (seeded weights,
+dropout 0.1, device augmentation p 0.8, Adam) on batches of 32 synthetic
+lines of the (4-chunk, 64-label) and (16-chunk, 256-label) buckets: steps/s
+and lines/s over timed steps on the host clock, peak device memory, and for
+three steps under torch.profiler the device's busy time, idle share and
+device time by kernel family (K1, K1b, convolution, matmul, ...).
 
 Exits 2 without a CUDA card, 1 if the profiler recorded no device activity.
 The last line is one JSON object with the numbers.
@@ -34,6 +42,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (  # first match wins
     ("K1 lstm_recurrence", ("lstm_recurrence_kernel", "lstm_cluster_kernel")),
+    ("K1b lstm_adjoint", ("lstm_backward_kernel",)),
     ("K2 decoder_layer_step", ("decoder_layer_step_kernel",)),
     ("K3 fused_beam_decode", ("fused_beam_decode_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop", "winograd")),
@@ -60,10 +69,90 @@ def union_us(intervals) -> float:
     return total
 
 
+def device_profile(torch, fn, trace: Path | None):
+    """Run ``fn`` under torch.profiler: (device busy ms, {family: ms,
+    launches}, kernels), or None when no device activity was recorded."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace or Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not dev:
+        return None
+    busy_ms = union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev) / 1e3
+    by_family: dict[str, dict] = {}
+    for e in dev:
+        f = by_family.setdefault(family(e["name"]), {"ms": 0.0, "launches": 0})
+        f["ms"] += float(e["dur"]) / 1e3
+        f["launches"] += 1
+    return busy_ms, by_family, sum(1 for e in dev if e.get("cat") == "kernel")
+
+
+def train_profile(torch, smi: str, trace: Path | None) -> int:
+    import numpy as np
+
+    from khmer_ocr_torch.config import ModelConfig
+    from khmer_ocr_torch.data.synthetic import synthetic_samples
+    from khmer_ocr_torch.infer.predictor import set_parity_mode
+    from khmer_ocr_torch.ops.kernels import build
+    from khmer_ocr_torch.train.data import LineDataset
+    from khmer_ocr_torch.train.step import batch_to_device, init_train_state, make_train_step
+
+    build.build(["lstm_recurrence", "lstm_backward"])
+    set_parity_mode()
+    cfg, out = ModelConfig(), []
+    for chunks, labels in ((4, 64), (16, 256)):
+        ds = LineDataset(synthetic_samples([chunks] * 32, chunks), device_augment=True)
+        host = next(ds.epoch_batches(32, np.random.default_rng(0), max_label_len=labels)).as_dict()
+        batch = batch_to_device(host, "cuda")
+        state, step = init_train_state(cfg, 0, "cuda"), make_train_step(cfg, augment_prob=0.8)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def steps(n):
+            nonlocal state
+            for _ in range(n):
+                state, _ = step(state, batch, gen, 1e-4)
+
+        steps(2)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n = 5
+        t0 = time.perf_counter()
+        steps(n)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = device_profile(torch, lambda: steps(3), trace)
+        if prof is None:
+            print("the profiler recorded no device activity: device time not measured", file=sys.stderr)
+            return 1
+        busy_ms, by_family, n_kernels = prof
+        busy_ms /= 3
+        row = dict(chunks=chunks, labels=int(batch["labels"].shape[1]), batch=32, step_ms=step_ms,
+                   steps_per_s=1e3 / step_ms, lines_per_s=32e3 / step_ms, device_busy_ms_per_step=busy_ms,
+                   idle_share=1 - busy_ms / step_ms, kernels_per_step=n_kernels / 3, peak_gib=peak,
+                   by_family={k: {"ms": v["ms"] / 3, "launches": v["launches"] / 3} for k, v in by_family.items()})
+        out.append(row)
+        print(f"[train] batch 32 x {chunks} chunks, {row['labels']} labels: {step_ms:.1f} ms a step unprofiled "
+              f"({row['steps_per_s']:.2f} steps/s, {row['lines_per_s']:.1f} lines/s); device busy {busy_ms:.1f} ms a "
+              f"step ({row['idle_share']:.1%} idle), {n_kernels / 3:.0f} kernels a step; peak memory {peak:.2f} GiB; "
+              f"on {smi}")
+        for fam, f in sorted(row["by_family"].items(), key=lambda kv: -kv[1]["ms"]):
+            print(f"[train]   {fam:22s} {f['ms']:9.2f} ms device a step, {f['launches']:7.1f} launches")
+        del state, batch
+    print(json.dumps(dict(device=smi, train=out)))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--trace", type=Path, default=None, help="also keep the Chrome trace here")
+    ap.add_argument("--train", action="store_true", help="profile the train step instead of recognition")
     args = ap.parse_args()
 
     sys.path.insert(0, str(ROOT))
@@ -75,6 +164,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"[device] {smi}")
+    if args.train:
+        return train_profile(torch, smi, args.trace)
     from khmer_ocr_torch.config import ModelConfig
     from khmer_ocr_torch.convert.from_jax import seeded_params
     from khmer_ocr_torch.data.synthetic import synthetic_lines
@@ -126,26 +217,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     steps0 = pred.decode_steps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)
-        torch.cuda.synchronize()
+    prof = device_profile(torch, lambda: pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs,
+                                                                   max_len=max_len), args.trace)
     steps = pred.decode_steps - steps0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = args.trace or Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(Path(path).read_text())["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    if not dev:
+    if prof is None:
         print("the profiler recorded no device activity: device time not measured", file=sys.stderr)
         return 1
-    busy_ms = union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev) / 1e3
-    by_family: dict[str, dict] = {}
-    for e in dev:
-        f = by_family.setdefault(family(e["name"]), {"ms": 0.0, "launches": 0})
-        f["ms"] += float(e["dur"]) / 1e3
-        f["launches"] += 1
-    n_kernels = sum(1 for e in dev if e.get("cat") == "kernel")
+    busy_ms, by_family, n_kernels = prof
     print(f"[request] {len(lines)} lines, beam {bw}, max_len {max_len}: wall {wall_ms:.1f} ms unprofiled; "
           f"device busy {busy_ms:.1f} ms ({1 - busy_ms / wall_ms:.1%} idle); {n_kernels} kernels, "
           f"{n_kernels / max(steps, 1):.1f} per decode step over {steps} steps; on {smi}")

@@ -1,7 +1,7 @@
 """Configuration tree of the PyTorch port.
 
 The same frozen dataclasses as the JAX package's ``config.py`` (preprocess,
-model, decode and runtime settings), so that one set of values describes both
+model, decode, runtime and training settings), so that one set of values describes both
 implementations. Fields that only steered TPU dispatch (mesh axes, grouped
 multi-batch programs, the per-step kernel and decode-head policies) are
 dropped: the port dispatches one bucket batch at a time and always runs its
@@ -85,8 +85,32 @@ class RuntimeConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe: Adam (b1 0.9, b2 0.999, eps 1e-8) at a staged cyclic
+    learning rate (epochs 1-15 ``base_lr``; 16-30 cyclic over ``stage2_lr``;
+    31+ over ``stage3_lr``; train/schedule.py), ``epoch_sample_size`` lines
+    drawn per epoch, device augmentation with probability ``augment_prob``."""
+
+    batch_size: int = 32
+    num_epochs: int = 100
+    epoch_sample_size: int = 50_000
+    base_lr: float = 1e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    stage2_start_epoch: int = 16
+    stage3_start_epoch: int = 31
+    stage2_lr: tuple[float, float] = (1e-5, 1e-4)
+    stage3_lr: tuple[float, float] = (1e-6, 1e-5)
+    augment_prob: float = 0.8
+    checkpoint_every_epochs: int = 10
+    max_label_len: int = 256
+    seed: int = 0
+
+
+@dataclass(frozen=True)
 class OCRConfig:
     preprocess: PreprocessConfig = field(default_factory=PreprocessConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

@@ -13,6 +13,10 @@ and never imports JAX:
     ``tok_emb``/``pos_emb``/``out``.
     Every leaf is consumed exactly once and every port parameter is set;
     anything else raises.
+    ``trainable_from_jax`` makes the training state instead: the same
+    params without the statistics, and the statistics apart.
+    ``params_to_jax`` is the inverse of both: a model trained by the port
+    loads into the JAX package.
   * ``save_npz``/``load_npz`` carry such a tree in one .npz file.
   * ``seeded_params`` makes a tree in the JAX layout from a numpy seed, with
     PyTorch's default initial scales, for runs without trained weights.
@@ -161,14 +165,11 @@ def _unflatten(flat: dict):
     return fix(root)
 
 
-def params_from_jax(params, batch_stats, cfg: ModelConfig, device="cpu"):
-    """JAX-layout trees (nested dicts/lists of numpy arrays, any float dtype)
-    -> the port's state: nested dicts of float32 tensors on ``device``."""
-    import torch
-
+def _port_leaves(params, batch_stats, cfg: ModelConfig):
+    """JAX-layout trees -> ({path: float32 array} of the params in the port's
+    layout, {path: array} of the statistics at their JAX paths)."""
     flat_p, flat_s = _flatten(params), _flatten(batch_stats)
     p_layout, s_layout = layout(cfg)
-    out = {}
 
     def take(flat, path, shape, what):
         if path not in flat:
@@ -178,17 +179,61 @@ def params_from_jax(params, batch_stats, cfg: ModelConfig, device="cpu"):
             raise ValueError(f"{what} leaf {'/'.join(map(str, path))} has shape {arr.shape}, expected {shape}")
         return arr
 
+    out_p, out_s = {}, {}
     for path, shape, _ in p_layout:
         arr = take(flat_p, path, shape, "params")
         if path[0] == "backbone" and len(shape) == 4:
             arr = arr.transpose(3, 2, 0, 1)  # conv kernels HWIO -> OIHW
-        out[path] = arr
+        out_p[path] = arr
     for path, shape, _ in s_layout:
-        out[("backbone",) + path] = take(flat_s, path, shape, "batch_stats")
+        out_s[path] = take(flat_s, path, shape, "batch_stats")
     if flat_p or flat_s:
         extra = sorted("/".join(map(str, k)) for k in list(flat_p) + list(flat_s))
         raise ValueError(f"leaves the port does not use: {extra[:8]}{' ...' if len(extra) > 8 else ''}")
-    return _unflatten({k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in out.items()})
+    return out_p, out_s
+
+
+def _tensors(flat: dict, device):
+    import torch
+
+    return _unflatten({k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in flat.items()})
+
+
+def params_from_jax(params, batch_stats, cfg: ModelConfig, device="cpu"):
+    """JAX-layout trees (nested dicts/lists of numpy arrays, any float dtype)
+    -> the port's inference state: nested dicts of float32 tensors on
+    ``device``, the BatchNorm statistics merged into the backbone's params."""
+    out, stats = _port_leaves(params, batch_stats, cfg)
+    out.update({("backbone",) + path: arr for path, arr in stats.items()})
+    return _tensors(out, device)
+
+
+def trainable_from_jax(params, batch_stats, cfg: ModelConfig, device="cpu"):
+    """JAX-layout trees -> the port's training state (params, batch_stats):
+    the params as ``params_from_jax`` makes them without the statistics, and
+    the statistics apart, at their JAX paths."""
+    out, stats = _port_leaves(params, batch_stats, cfg)
+    return _tensors(out, device), _tensors(stats, device)
+
+
+def params_to_jax(params, batch_stats, cfg: ModelConfig):
+    """The port's params (tensors or arrays) -> JAX-layout numpy trees
+    (params, batch_stats): conv kernels OIHW -> HWIO, the statistics split
+    back out. ``batch_stats`` is the training state's statistics tree, or
+    None when they are merged into ``params`` (the inference state)."""
+    def array(v):  # a copy: the trees stay apart from tensors that training updates in place
+        return np.array(v.detach().cpu() if hasattr(v, "detach") else v, dtype=np.float32)
+
+    flat_p = {k: array(v) for k, v in _flatten(params).items()}
+    flat_s = flat_p if batch_stats is None else {("backbone",) + k: array(v) for k, v in _flatten(batch_stats).items()}
+    p_layout, s_layout = layout(cfg)
+    out_p, out_s = {}, {}
+    for path, shape, _ in p_layout:
+        arr = flat_p[path]
+        out_p[path] = arr.transpose(2, 3, 1, 0) if path[0] == "backbone" and len(shape) == 4 else arr
+    for path, _, _ in s_layout:
+        out_s[path] = flat_s[("backbone",) + path]
+    return _unflatten(out_p), _unflatten(out_s)
 
 
 def seeded_params(cfg: ModelConfig, seed: int = 0):

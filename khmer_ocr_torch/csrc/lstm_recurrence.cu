@@ -5,9 +5,11 @@
 //     gates = xg[d, :, t] + h @ W_hh[d]      (B, 4H), gate order i, f, g, o
 //     i, f, o = sigmoid(.), g = tanh(.)
 //     c = f * c + i * g ;  h = o * tanh(c)
-// and h is written for every t. xg = x @ W_ih + b_ih + b_hh is computed
-// outside, as one large matrix product. The directions (1 or 2) are
-// independent recurrences that run side by side in one launch.
+// and h is written for every t; with a cell output (training: the saved
+// state of the backward, csrc/lstm_backward.cu) c is written too, by the
+// thread that owns it. xg = x @ W_ih + b_ih + b_hh is computed outside, as
+// one large matrix product. The directions (1 or 2) are independent
+// recurrences that run side by side in one launch.
 //
 // What bounds it on the H100: the T steps are serial, and every step needs
 // all of W_hh (H x 4H f32 = 576 KiB at H = 192), more than one SM's shared
@@ -57,13 +59,15 @@ __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf
 
 template <int BT>
 __global__ void lstm_recurrence_kernel(const float* __restrict__ xg_all, const float* __restrict__ w_all,
-                                       float* __restrict__ h_all, int B, int T, int H) {
+                                       float* __restrict__ h_all, float* __restrict__ c_all, int B, int T,
+                                       int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   const int dir = blockIdx.y;
   const float* xg = xg_all + (size_t)dir * B * T * G;
   const float* w_hh = w_all + (size_t)dir * H * G;
   float* h_out = h_all + (size_t)dir * B * T * H;
+  float* c_out = c_all ? c_all + (size_t)dir * B * T * H : nullptr;
   float* h_s = smem;           // [BT][H]
   float* c_s = h_s + BT * H;   // [BT][H]
   float* g_s = c_s + BT * H;   // [BT][4H]
@@ -108,14 +112,15 @@ __global__ void lstm_recurrence_kernel(const float* __restrict__ xg_all, const f
       c_s[idx] = c;
       h_s[idx] = h;
       h_out[((size_t)(b0 + r) * T + t) * H + u] = h;
+      if (c_out) c_out[((size_t)(b0 + r) * T + t) * H + u] = c;
     }
     __syncthreads();
   }
 }
 
 template <int BT>
-cudaError_t launch_tile(const float* xg, const float* w_hh, float* h_out, int ndir, int B, int T, int H,
-                        cudaStream_t stream) {
+cudaError_t launch_tile(const float* xg, const float* w_hh, float* h_out, float* c_out, int ndir, int B, int T,
+                        int H, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)BT * 6 * H;
   cudaError_t err = cudaFuncSetAttribute(lstm_recurrence_kernel<BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -123,7 +128,7 @@ cudaError_t launch_tile(const float* xg, const float* w_hh, float* h_out, int nd
   int threads = ((4 * H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   const dim3 grid((B + BT - 1) / BT, ndir);
-  lstm_recurrence_kernel<BT><<<grid, threads, smem, stream>>>(xg, w_hh, h_out, B, T, H);
+  lstm_recurrence_kernel<BT><<<grid, threads, smem, stream>>>(xg, w_hh, h_out, c_out, B, T, H);
   return cudaGetLastError();
 }
 
@@ -139,7 +144,7 @@ constexpr int NT = 384;         // threads per CTA
 template <int H, int C, int BT>
 __global__ void __launch_bounds__(NT, 1)
 lstm_cluster_kernel(const float* __restrict__ xg_all, const float* __restrict__ w_all,
-                    float* __restrict__ h_all, int B, int T) {
+                    float* __restrict__ h_all, float* __restrict__ c_all, int B, int T) {
   constexpr int G = 4 * H;
   constexpr int U = H / C;           // hidden units of this CTA
   constexpr int NCOL = 4 * U;        // gate columns of this CTA
@@ -160,6 +165,7 @@ lstm_cluster_kernel(const float* __restrict__ xg_all, const float* __restrict__ 
   const float* xg = xg_all + (size_t)dir * B * T * G;
   const float* w_hh = w_all + (size_t)dir * H * G;
   float* h_out = h_all + (size_t)dir * B * T * H;
+  float* c_out = c_all ? c_all + (size_t)dir * B * T * H : nullptr;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -233,7 +239,11 @@ lstm_cluster_kernel(const float* __restrict__ xg_all, const float* __restrict__ 
       // the lanes of one row share the C destinations
       float* dst = &h_buf[cur ^ 1][my_row][unit];
       for (int q = glane / BT; q < C; q += ROW_LANES) *cluster.map_shared_rank(dst, q) = h;
-      if (glane / BT == 0) h_out[((size_t)(b0 + my_row) * T + t) * H + unit] = h;
+      // c lives in this lane's register: the lane that writes h writes it
+      if (glane / BT == 0) {
+        h_out[((size_t)(b0 + my_row) * T + t) * H + unit] = h;
+        if (c_out) c_out[((size_t)(b0 + my_row) * T + t) * H + unit] = c;
+      }
     }
 #pragma unroll
     for (int r = 0; r < BT; ++r) xin[r] = xnext[r];
@@ -242,8 +252,8 @@ lstm_cluster_kernel(const float* __restrict__ xg_all, const float* __restrict__ 
 }
 
 template <int C, int BT>
-cudaError_t launch_cluster(const float* xg, const float* w_hh, float* h_out, int ndir, int B, int T,
-                           cudaStream_t stream) {
+cudaError_t launch_cluster(const float* xg, const float* w_hh, float* h_out, float* c_out, int ndir, int B,
+                           int T, cudaStream_t stream) {
   auto kernel = lstm_cluster_kernel<CLUSTER_H, C, BT>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * ((B + BT - 1) / BT), ndir);
@@ -257,38 +267,40 @@ cudaError_t launch_cluster(const float* xg, const float* w_hh, float* h_out, int
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {&xg, &w_hh, &h_out, &B, &T};
+  void* args[] = {&xg, &w_hh, &h_out, &c_out, &B, &T};
   return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
 }
 
 
 }  // namespace
 
-// xg (ndir, B, T, 4H), w_hh (ndir, H, 4H), h_out (ndir, B, T, H): contiguous
-// f32 on the device. route 0: the tile route, 4H <= 1024; route 8: the
-// cluster route with clusters of 8 CTAs, H = 192. `rows` in {1, 2, 4, 8}
-// batch rows per CTA or cluster. Returns a cudaError_t (0 on success).
-extern "C" int lstm_recurrence_launch(const void* xg, const void* w_hh, void* h_out, int ndir, int B, int T,
-                                      int H, int route, int rows, void* stream) {
+// xg (ndir, B, T, 4H), w_hh (ndir, H, 4H), h_out and c_out (ndir, B, T, H):
+// contiguous f32 on the device; c_out may be null (no cell output). route 0:
+// the tile route, 4H <= 1024; route 8: the cluster route with clusters of 8
+// CTAs, H = 192. `rows` in {1, 2, 4, 8} batch rows per CTA or cluster.
+// Returns a cudaError_t (0 on success).
+extern "C" int lstm_recurrence_launch(const void* xg, const void* w_hh, void* h_out, void* c_out, int ndir, int B,
+                                      int T, int H, int route, int rows, void* stream) {
   const float* x = static_cast<const float*>(xg);
   const float* w = static_cast<const float*>(w_hh);
   float* h = static_cast<float*>(h_out);
+  float* c = static_cast<float*>(c_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     switch (rows) {
-      case 1: return (int)launch_tile<1>(x, w, h, ndir, B, T, H, s);
-      case 2: return (int)launch_tile<2>(x, w, h, ndir, B, T, H, s);
-      case 4: return (int)launch_tile<4>(x, w, h, ndir, B, T, H, s);
-      case 8: return (int)launch_tile<8>(x, w, h, ndir, B, T, H, s);
+      case 1: return (int)launch_tile<1>(x, w, h, c, ndir, B, T, H, s);
+      case 2: return (int)launch_tile<2>(x, w, h, c, ndir, B, T, H, s);
+      case 4: return (int)launch_tile<4>(x, w, h, c, ndir, B, T, H, s);
+      case 8: return (int)launch_tile<8>(x, w, h, c, ndir, B, T, H, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (route != 8 || H != CLUSTER_H) return (int)cudaErrorInvalidValue;
   switch (rows) {
-    case 1: return (int)launch_cluster<8, 1>(x, w, h, ndir, B, T, s);
-    case 2: return (int)launch_cluster<8, 2>(x, w, h, ndir, B, T, s);
-    case 4: return (int)launch_cluster<8, 4>(x, w, h, ndir, B, T, s);
-    case 8: return (int)launch_cluster<8, 8>(x, w, h, ndir, B, T, s);
+    case 1: return (int)launch_cluster<8, 1>(x, w, h, c, ndir, B, T, s);
+    case 2: return (int)launch_cluster<8, 2>(x, w, h, c, ndir, B, T, s);
+    case 4: return (int)launch_cluster<8, 4>(x, w, h, c, ndir, B, T, s);
+    case 8: return (int)launch_cluster<8, 8>(x, w, h, c, ndir, B, T, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

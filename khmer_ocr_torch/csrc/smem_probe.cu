@@ -32,6 +32,8 @@ __global__ void __launch_bounds__(COLS) smem_probe_kernel(const float* __restric
   out[c] = buf[c] + last[c];
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // cudaDevAttrMaxSharedMemoryPerBlockOptin of the device, or minus a cudaError_t.
@@ -56,4 +58,13 @@ extern "C" int smem_probe_launch(const float* x, float* out, int nbytes, void* s
     return (int)err;
   }
   return (int)cudaStreamSynchronize(s);
+}
+
+// One launch of an empty kernel and a synchronise: the floor under K4's time
+// (whose work is a launch). Returns a cudaError_t.
+extern "C" int empty_launch(void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  empty_kernel<<<1, COLS, 0, s>>>();
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaStreamSynchronize(s);
 }

@@ -2,7 +2,8 @@
 
 Dark blocks with holes on a white, lightly noisy background: enough structure
 for a randomly initialised model to give each line its own output, made the
-same way on every machine.
+same way on every machine. ``synthetic_samples`` pairs them with label
+strings drawn from the vocabulary, for training runs without rendered text.
 """
 
 from __future__ import annotations
@@ -37,3 +38,15 @@ def synthetic_lines(chunk_counts, seed: int = 0, cfg: PreprocessConfig | None = 
         img += rs.randint(-12, 13, size=img.shape)
         lines.append(np.clip(img, 0, 255).astype(np.uint8))
     return lines
+
+
+def synthetic_samples(chunk_counts, seed: int = 0, cfg: PreprocessConfig | None = None) -> list[tuple]:
+    """(line, text) per entry of ``chunk_counts``: ``synthetic_lines`` and a
+    string of 2 to 14 x chunks characters of the bundled vocabulary (its
+    Khmer and ASCII entries), drawn from the same seed."""
+    from ..tokenizer import Tokenizer
+
+    chars = [c for c in Tokenizer().char2idx if not c.startswith("<")]
+    rs = np.random.RandomState(seed + 1)
+    texts = ["".join(rs.choice(chars, size=int(rs.randint(2, 14 * int(n) + 1)))) for n in chunk_counts]
+    return list(zip(synthetic_lines(chunk_counts, seed, cfg), texts))

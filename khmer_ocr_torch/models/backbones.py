@@ -1,4 +1,4 @@
-"""CNN feature extractors for inference: SE-VGG (the flagship), VGG, ResNet.
+"""CNN feature extractors: SE-VGG (the flagship), VGG, ResNet.
 
   * SE-VGG: seven 3x3 conv + BatchNorm + ReLU blocks, 1-D squeeze-excitation
     after conv4, conv6 and conv7 (pooled over height only, so the width axis
@@ -15,10 +15,15 @@ All end in the exact overlapping-bin adaptive pool to (2, 32): a (B, 48, 100,
 The public functions keep the JAX package's NHWC layout at their boundary;
 the convolutions run in PyTorch's NCHW inside (cuDNN on the card, with TF32
 off: infer/predictor.py::set_parity_mode). Convolutions pad SAME (1 px for
-3x3), max pools are VALID, BatchNorm uses the stored statistics with eps 1e-5.
+3x3), max pools are VALID, BatchNorm has eps 1e-5.
 Parameters: convs {"w" (O, I, kh, kw), "b" where the conv has one}, BatchNorms
-{"scale", "bias", "mean", "var"}, ``se*`` {"fc1", "fc2"} each {"w" (in, out),
-"b"}; ResNet's blocks are lists under ``layer1``..``layer4``.
+{"scale", "bias"}, ``se*`` {"fc1", "fc2"} each {"w" (in, out), "b"}; ResNet's
+blocks are lists under ``layer1``..``layer4``. The BatchNorm statistics
+{"mean", "var"} sit at the same paths of ``stats``; for inference they are
+merged into the params (convert/from_jax.py::params_from_jax) and ``stats``
+is omitted. Every ``*_apply(p, x, stats=None, train=False)`` returns
+(features, new stats): in training BatchNorm normalises with the batch's
+statistics and returns updated running ones (batch_norm).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from ..ops.adaptive_pool import adaptive_avg_pool2d
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def conv2d(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -36,15 +42,25 @@ def conv2d(p: dict, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, p["w"], p.get("b"), padding=p["w"].shape[-1] // 2)
 
 
-def batch_norm(bn: dict, x: torch.Tensor) -> torch.Tensor:
-    """Inference BatchNorm over NCHW with the stored statistics."""
-    inv = torch.rsqrt(bn["var"] + BN_EPS) * bn["scale"]
-    return (x - bn["mean"][:, None, None]) * inv[:, None, None] + bn["bias"][:, None, None]
+def batch_norm(p: dict, s: dict, x: torch.Tensor, train: bool = False):
+    """BatchNorm over NCHW -> (y, new statistics). Inference normalises with
+    the stored ``s["mean"]``/``s["var"]``; training with the batch's mean and
+    biased variance over (N, H, W), every sample of the batch included, and
+    moves the running statistics by momentum 0.1 towards the batch mean and
+    the unbiased variance (PyTorch's BatchNorm2d)."""
+    if train:  # PyTorch's own training BatchNorm, which moves the copies of the running statistics in place
+        new_s = {"mean": s["mean"].clone(), "var": s["var"].clone()}
+        y = F.batch_norm(x, new_s["mean"], new_s["var"], p["scale"], p["bias"], training=True,
+                         momentum=BN_MOMENTUM, eps=BN_EPS)
+        return y, new_s
+    inv = torch.rsqrt(s["var"] + BN_EPS) * p["scale"]
+    return (x - s["mean"][:, None, None]) * inv[:, None, None] + p["bias"][:, None, None], s
 
 
-def conv_bn_relu(p: dict, name: str, x: torch.Tensor) -> torch.Tensor:
-    """NCHW conv (SAME) + inference BatchNorm + ReLU."""
-    return torch.relu(batch_norm(p[f"bn_{name}"], conv2d(p[name], x)))
+def conv_bn_relu(p: dict, s: dict, name: str, x: torch.Tensor, train: bool, ns: dict) -> torch.Tensor:
+    """NCHW conv (SAME) + BatchNorm + ReLU; the BatchNorm's new statistics go to ``ns``."""
+    y, ns[f"bn_{name}"] = batch_norm(p[f"bn_{name}"], s[f"bn_{name}"], conv2d(p[name], x), train)
+    return torch.relu(y)
 
 
 def se_block(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -55,66 +71,75 @@ def se_block(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x * y.transpose(1, 2)[:, :, None, :]
 
 
-def se_vgg_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, H, W, 1) NHWC -> (B, 2, 32, 512) NHWC."""
+def se_vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False):
+    """x: (B, H, W, 1) NHWC -> ((B, 2, 32, 512) NHWC, new stats)."""
+    s, ns = p if stats is None else stats, {}
     x = x.permute(0, 3, 1, 2)
-    x = conv_bn_relu(p, "conv1", x)
+    x = conv_bn_relu(p, s, "conv1", x, train, ns)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, "conv2", x)
+    x = conv_bn_relu(p, s, "conv2", x, train, ns)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, "conv3", x)
-    x = conv_bn_relu(p, "conv4", x)
+    x = conv_bn_relu(p, s, "conv3", x, train, ns)
+    x = conv_bn_relu(p, s, "conv4", x, train, ns)
     x = se_block(p["se3"], x)
     x = F.max_pool2d(x, (2, 1), (2, 1))
-    x = conv_bn_relu(p, "conv5", x)
-    x = conv_bn_relu(p, "conv6", x)
+    x = conv_bn_relu(p, s, "conv5", x, train, ns)
+    x = conv_bn_relu(p, s, "conv6", x, train, ns)
     x = se_block(p["se4"], x)
     x = F.max_pool2d(x, (2, 1), (2, 1))
-    x = conv_bn_relu(p, "conv7", x)
+    x = conv_bn_relu(p, s, "conv7", x, train, ns)
     x = se_block(p["se5"], x)
-    return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32))
+    return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32)), ns
 
 
-def vgg_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, H, W, 1) NHWC -> (B, 2, 32, 512) NHWC."""
+def vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False):
+    """x: (B, H, W, 1) NHWC -> ((B, 2, 32, 512) NHWC, new stats)."""
+    s, ns = p if stats is None else stats, {}
     x = x.permute(0, 3, 1, 2)
-    x = conv_bn_relu(p, "conv1", x)
+    x = conv_bn_relu(p, s, "conv1", x, train, ns)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, "conv2", x)
+    x = conv_bn_relu(p, s, "conv2", x, train, ns)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, "conv3", x)
-    x = conv_bn_relu(p, "conv4", x)
+    x = conv_bn_relu(p, s, "conv3", x, train, ns)
+    x = conv_bn_relu(p, s, "conv4", x, train, ns)
     x = F.max_pool2d(x, (2, 1), (2, 1))
-    x = conv_bn_relu(p, "conv5", x)
-    x = conv_bn_relu(p, "conv6", x)
+    x = conv_bn_relu(p, s, "conv5", x, train, ns)
+    x = conv_bn_relu(p, s, "conv6", x, train, ns)
     x = F.max_pool2d(x, (2, 1), (2, 1))
     x = conv2d(p["conv7"], x)  # plain conv: no BatchNorm, no ReLU
-    return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32))
+    return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32)), ns
 
 
 _RESNET_POOLS = [(2, 2), (2, 1), (2, 1), None]  # after each stage of convert/from_jax.py::RESNET_STAGES
 
 
-def basic_block_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+def basic_block_apply(p: dict, s: dict, x: torch.Tensor, train: bool):
     """ResNet BasicBlock on NCHW: two conv + BatchNorm, a projected shortcut
-    where the width changes, ReLU of the sum."""
-    out = torch.relu(batch_norm(p["bn1"], conv2d(p["conv1"], x)))
-    out = batch_norm(p["bn2"], conv2d(p["conv2"], out))
-    sc = batch_norm(p["short_bn"], conv2d(p["short_conv"], x)) if "short_conv" in p else x
-    return torch.relu(out + sc)
+    where the width changes, ReLU of the sum. -> (y, new stats)."""
+    ns = {}
+    out, ns["bn1"] = batch_norm(p["bn1"], s["bn1"], conv2d(p["conv1"], x), train)
+    out, ns["bn2"] = batch_norm(p["bn2"], s["bn2"], conv2d(p["conv2"], torch.relu(out)), train)
+    sc = x
+    if "short_conv" in p:
+        sc, ns["short_bn"] = batch_norm(p["short_bn"], s["short_bn"], conv2d(p["short_conv"], x), train)
+    return torch.relu(out + sc), ns
 
 
-def resnet_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, H, W, 1) NHWC -> (B, 2, 32, 512) NHWC."""
+def resnet_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False):
+    """x: (B, H, W, 1) NHWC -> ((B, 2, 32, 512) NHWC, new stats)."""
+    s, ns = p if stats is None else stats, {}
     x = x.permute(0, 3, 1, 2)
-    x = torch.relu(batch_norm(p["stem_bn"], conv2d(p["stem_conv"], x)))
-    x = F.max_pool2d(x, (2, 2), (2, 2))
+    x, ns["stem_bn"] = batch_norm(p["stem_bn"], s["stem_bn"], conv2d(p["stem_conv"], x), train)
+    x = F.max_pool2d(torch.relu(x), (2, 2), (2, 2))
     for i, pool in enumerate(_RESNET_POOLS):
-        for block in p[f"layer{i + 1}"]:
-            x = basic_block_apply(block, x)
+        stage = f"layer{i + 1}"
+        ns[stage] = []
+        for block, block_s in zip(p[stage], s[stage]):
+            x, block_ns = basic_block_apply(block, block_s, x, train)
+            ns[stage].append(block_ns)
         if pool is not None:
             x = F.max_pool2d(x, pool, pool)
-    return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32))
+    return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32)), ns
 
 
 BACKBONE_APPLY = {"se_vgg": se_vgg_apply, "vgg": vgg_apply, "resnet": resnet_apply}

@@ -8,13 +8,18 @@ plain version on the CPU). The backward direction is length-aware: each row
 is reversed within its valid length before the recurrence and reversed back
 after, so bucket padding never reaches valid positions. Parameters per
 direction: "w_ih" (D, 4H), "w_hh" (H, 4H), "b_ih", "b_hh" (4H,).
+
+Where autograd records (training), the recurrence goes through
+``LSTMRecurrence`` (the forward with cell states, then kernel K1b's adjoint
+on the card); otherwise through the forward alone. The device picks kernel
+or plain version, so there is no switch between the two.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.kernels.lstm import lstm_recurrence
+from ..ops.kernels.lstm import LSTMRecurrence, lstm_recurrence
 
 
 def input_gates(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -22,9 +27,15 @@ def input_gates(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, p["w_ih"]) + (p["b_ih"] + p["b_hh"])
 
 
+def _recurrence(xg: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and (xg.requires_grad or w_hh.requires_grad):
+        return LSTMRecurrence.apply(xg, w_hh)
+    return lstm_recurrence(xg, w_hh)
+
+
 def lstm_scan(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Unidirectional LSTM over (B, T, D) -> (B, T, H)."""
-    return lstm_recurrence(input_gates(p, x).contiguous(), p["w_hh"])
+    return _recurrence(input_gates(p, x).contiguous(), p["w_hh"])
 
 
 def flip_within_length(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -45,5 +56,5 @@ def bilstm_apply(p: dict, x: torch.Tensor, lengths: torch.Tensor | None = None) 
     else:
         flip = lambda y: flip_within_length(y, lengths)
     xg = torch.stack([input_gates(p["fw"], x), input_gates(p["bw"], flip(x))])
-    h = lstm_recurrence(xg, torch.stack([p["fw"]["w_hh"], p["bw"]["w_hh"]]))
+    h = _recurrence(xg, torch.stack([p["fw"]["w_hh"], p["bw"]["w_hh"]]))
     return torch.cat([h[0], flip(h[1])], dim=-1)

@@ -4,6 +4,12 @@ Parameters are plain dicts of tensors in the JAX package's layout: dense
 weights are (in, out), applied as ``x @ w + b``; LayerNorm has "scale" and
 "bias". K/V caches are merged-head (..., T, D).
 
+Training passes a ``Dropout`` (rate, deterministic flag, generator) to
+``mha``, ``ffn``, ``encoder_layer`` and ``decoder_layer``: dropout on the
+attention weights and on every residual branch, as the JAX package's
+``Ctx.drop``. Without one (inference) they compute what they computed
+before, op for op.
+
 ``decoder_layer_step`` is the plain decode step of one decoder layer; it
 updates the self-attention caches in place at slot ``pos``. On the card the
 decode loop runs the hand-written kernel instead (ops/kernels/decode_step.py),
@@ -13,6 +19,7 @@ which is held against this function.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -40,24 +47,73 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:  # (B, H, T, hd) -> (B, T, D)
     return x.transpose(1, 2).reshape(b, t, h * hd)
 
 
-def mha(p: dict, num_heads: int, q_in, kv_in):
-    """Unmasked multi-head attention (the encoder's, within one chunk)."""
+@dataclass
+class Dropout:
+    """Inverted dropout for training: zero with probability ``rate``, scale
+    the rest by 1 / (1 - rate); the identity when ``deterministic`` or at
+    rate 0. The keep mask is drawn from ``generator``, which must live on
+    the device of the tensors it drops."""
+
+    rate: float = 0.0
+    deterministic: bool = True
+    generator: torch.Generator | None = None
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.deterministic or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def mha(p: dict, num_heads: int, q_in, kv_in, key_padding_mask=None, causal: bool = False, drop=None):
+    """Multi-head attention. key_padding_mask: (B, Tk) bool, True = padding;
+    ``causal`` masks keys after each query (Tq == Tk); ``drop`` applies to
+    the attention weights."""
     q = _split_heads(dense(p["q"], q_in), num_heads)
     k = _split_heads(dense(p["k"], kv_in), num_heads)
     v = _split_heads(dense(p["v"], kv_in), num_heads)
     hd = q.shape[-1]
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd)
+    if causal:
+        tq, tk = logits.shape[-2:]
+        allowed = torch.ones(tq, tk, dtype=torch.bool, device=logits.device).tril()
+        logits = logits.masked_fill(~allowed, NEG_INF)
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
     w = torch.softmax(logits, dim=-1)
+    if drop is not None:
+        w = drop(w)
     return dense(p["o"], _merge_heads(torch.einsum("bhqk,bhkd->bhqd", w, v)))
 
 
-def ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return dense(p["lin2"], torch.relu(dense(p["lin1"], x)))
+def ffn(p: dict, x: torch.Tensor, drop=None) -> torch.Tensor:
+    h = torch.relu(dense(p["lin1"], x))
+    if drop is not None:
+        h = drop(h)
+    return dense(p["lin2"], h)
 
 
-def encoder_layer(p: dict, num_heads: int, x: torch.Tensor) -> torch.Tensor:
-    x = layer_norm(p["ln1"], x + mha(p["self"], num_heads, x, x))
-    return layer_norm(p["ln2"], x + ffn(p, x))
+def encoder_layer(p: dict, num_heads: int, x: torch.Tensor, drop=None) -> torch.Tensor:
+    d = drop or _identity
+    x = layer_norm(p["ln1"], x + d(mha(p["self"], num_heads, x, x, drop=drop)))
+    return layer_norm(p["ln2"], x + d(ffn(p, x, drop)))
+
+
+def decoder_layer(p: dict, num_heads: int, x, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                  drop=None):
+    """Teacher-forced decoder layer: causal, padding-masked self-attention,
+    cross-attention over the memory, FFN; post-LN."""
+    d = drop or _identity
+    sa = mha(p["self"], num_heads, x, x, key_padding_mask=tgt_key_padding_mask, causal=True, drop=drop)
+    x = layer_norm(p["ln1"], x + d(sa))
+    ca = mha(p["cross"], num_heads, x, memory, key_padding_mask=memory_key_padding_mask, drop=drop)
+    x = layer_norm(p["ln2"], x + d(ca))
+    return layer_norm(p["ln3"], x + d(ffn(p, x, drop)))
 
 
 def pack_step_params(p: dict) -> dict:

@@ -1,4 +1,5 @@
-"""The chunk-and-merge recognition model: encode and the incremental decode step.
+"""The chunk-and-merge recognition model: encode, the teacher-forced decode
+(training) and the incremental decode step.
 
 CNN backbone over fixed 48x100 chunks -> patch projection (32 tokens per
 chunk) -> per-chunk transformer encoder -> per-line concatenation + learned
@@ -16,7 +17,9 @@ or the vgg and resnet baselines (without it).
 
 ``params`` is the port's state: nested dicts of tensors as made by
 convert/from_jax.py (BatchNorm statistics folded into the backbone's
-``bn_conv*`` entries).
+``bn_conv*`` entries). Training keeps the trainable params and the
+BatchNorm statistics apart (``init_model``) and passes the statistics to
+``encode``/``forward_train`` as ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -24,10 +27,11 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig
+from ..convert.from_jax import seeded_params, trainable_from_jax
 from ..ops.kernels.decode_step import decoder_layer_step, layer_weights
 from . import backbones
 from .bilstm import bilstm_apply
-from .layers import dense, encoder_layer, pack_step_params
+from .layers import decoder_layer, dense, encoder_layer, pack_step_params
 
 CHUNK_TOKENS = 32  # patch tokens per 48x100 chunk
 # The decode loops run on the host, and an early-exit test needs a device
@@ -44,21 +48,60 @@ def patch_apply(p: dict, f: torch.Tensor) -> torch.Tensor:
     return dense(p["proj"], x) + p["pos_emb"][:CHUNK_TOKENS]
 
 
-def encode(params: dict, chunks: torch.Tensor, chunk_counts: torch.Tensor, cfg: ModelConfig):
+def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> tuple[dict, dict]:
+    """(params, batch_stats) for training from a numpy seed
+    (convert/from_jax.py::seeded_params): float32 trees on ``device``, the
+    BatchNorm statistics apart from the trainable params."""
+    return trainable_from_jax(*seeded_params(cfg, seed), cfg, device=device)
+
+
+def encode(params: dict, chunks: torch.Tensor, chunk_counts: torch.Tensor, cfg: ModelConfig, train: bool = False,
+           drop=None, batch_stats: dict | None = None):
     """chunks: (B, N, H, W) normalised; chunk_counts: (B,) valid chunks.
-    Returns (memory (B, N*32, D), pad_mask (B, N*32) True = padding)."""
+    Returns (memory (B, N*32, D), pad_mask (B, N*32) True = padding), and in
+    ``train`` mode also the BatchNorm statistics the batch moved
+    (``batch_stats`` holds the running ones; without it they are read from
+    ``params``). ``drop``: the encoder layers' dropout (layers.Dropout)."""
     b, n, h, w = chunks.shape
-    f = backbones.BACKBONE_APPLY[cfg.backbone](params["backbone"], chunks.reshape(b * n, h, w, 1))
+    f, new_stats = backbones.BACKBONE_APPLY[cfg.backbone](params["backbone"], chunks.reshape(b * n, h, w, 1),
+                                                          batch_stats, train)
     tok = patch_apply(params["patch"], f)
     for lp in params["enc"]:
-        tok = encoder_layer(lp, cfg.num_heads, tok)
+        tok = encoder_layer(lp, cfg.num_heads, tok, drop)
     t = n * CHUNK_TOKENS
     memory = tok.reshape(b, t, tok.shape[-1]) + params["global_pos"][:t]
     lengths = chunk_counts.to(torch.long) * CHUNK_TOKENS
     if cfg.use_bilstm:
         memory = bilstm_apply(params["bilstm"], memory, lengths)
     pad_mask = torch.arange(t, device=memory.device)[None, :] >= lengths[:, None]
-    return memory, pad_mask
+    return (memory, pad_mask, new_stats) if train else (memory, pad_mask)
+
+
+def decode_train(params: dict, memory, memory_pad_mask, tgt_tokens, cfg: ModelConfig, drop=None):
+    """Teacher-forced decode: tgt_tokens (B, T) -> logits (B, T, V), with a
+    causal mask and the target's padding masked."""
+    dec = params["dec"]
+    t = tgt_tokens.shape[1]
+    max_t = dec["pos_emb"].shape[0]
+    if t > max_t:
+        raise ValueError(f"target length {t} exceeds the decoder's positional embedding ({max_t}); "
+                         f"truncate labels to decode_max_len + 1 (see train/data.py label buckets)")
+    x = dec["tok_emb"][tgt_tokens] + dec["pos_emb"][:t][None]
+    tgt_pad = tgt_tokens == cfg.pad_idx
+    for lp in dec["layers"]:
+        x = decoder_layer(lp, cfg.num_heads, x, memory, tgt_key_padding_mask=tgt_pad,
+                          memory_key_padding_mask=memory_pad_mask, drop=drop)
+    return dense(dec["out"], x)
+
+
+def forward_train(params: dict, batch_stats: dict, chunks, chunk_counts, tgt_in, cfg: ModelConfig, drop=None,
+                  train: bool = True):
+    """(chunks, tgt_in) -> (logits, new batch_stats): the teacher-forced forward."""
+    if train:
+        memory, pad_mask, new_stats = encode(params, chunks, chunk_counts, cfg, True, drop, batch_stats)
+    else:
+        (memory, pad_mask), new_stats = encode(params, chunks, chunk_counts, cfg, False, drop, batch_stats), batch_stats
+    return decode_train(params, memory, pad_mask, tgt_in, cfg, drop), new_stats
 
 
 def memory_kv(params: dict, memory) -> list:

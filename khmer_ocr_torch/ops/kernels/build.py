@@ -25,6 +25,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 SOURCES = {
     "lstm_recurrence": "lstm_recurrence.cu",
+    "lstm_backward": "lstm_backward.cu",
     "decoder_layer_step": "decoder_layer_step.cu",
     "decode_loop": "decode_loop.cu",
     "smem_probe": "smem_probe.cu",

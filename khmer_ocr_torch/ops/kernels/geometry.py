@@ -1,4 +1,4 @@
-"""Launch geometry of kernels K1, K2 and K3, chosen on the host from the shapes.
+"""Launch geometry of kernels K1, K1b, K2 and K3, chosen on the host from the shapes.
 
 Plain Python (no torch), so the CPU tests check these rules in any process.
 The measured numbers behind the constants come from
@@ -9,6 +9,8 @@ on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
 from __future__ import annotations
 
 import math
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 # --- K1, the LSTM recurrence ---------------------------------------------
 
@@ -51,6 +53,17 @@ def k1_route(batch: int, hidden: int, ndir: int = 1) -> tuple[int, int]:
     return CLUSTER_CTAS, CLUSTER_ROWS[-1]
 
 
+def k1b_rows(batch: int, ndir: int = 1) -> int:
+    """Batch rows per CTA of K1b (csrc/lstm_backward.cu, one CTA per tile
+    and direction): the fewest that keep every CTA on its own SM. A step's
+    time is one SM's pass over W_hh from L2 whatever the rows, so more rows
+    help only once the CTAs outnumber the SMs."""
+    for rows in CLUSTER_ROWS:
+        if ndir * math.ceil(batch / rows) <= SMS:
+            return rows
+    return CLUSTER_ROWS[-1]
+
+
 def cluster_slices(hidden: int, ctas: int) -> list[list[int]]:
     """The gate columns of W_hh (H, 4H) that each CTA of a cluster owns: its
     hidden units u in [c H/C, (c+1) H/C) and their columns u, H+u, 2H+u,
@@ -63,7 +76,6 @@ def cluster_slices(hidden: int, ctas: int) -> list[list[int]]:
 
 MAX_GROUP = 8     # lanes per cluster (the kernel's instantiations)
 MAX_CLUSTER = 16  # CTAs per cluster the H100 allows (above 8 as a non-portable size)
-SMS = 132         # streaming multiprocessors of an H100 SXM
 SPLIT_FROM_TM = 1024
 
 

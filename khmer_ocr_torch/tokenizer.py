@@ -1,6 +1,7 @@
 """Character tokenizer over the bundled 124-entry vocabulary.
 
 <pad>=0, <unk>=1, <sos>=2, <eos>=3, then ASCII and Khmer code points.
+``encode`` frames a label with <sos>/<eos>, unknown characters -> <unk>;
 ``decode`` skips <sos>/<pad> and stops at <eos>.
 """
 
@@ -25,6 +26,14 @@ class Tokenizer:
         self.sos_idx = self.char2idx.get("<sos>", 1)
         self.eos_idx = self.char2idx.get("<eos>", 2)
         self.pad_idx = self.char2idx.get("<pad>", 0)
+        self.unk_idx = self.char2idx.get("<unk>", 1)
+
+    def __len__(self) -> int:
+        return len(self.char2idx)
+
+    def encode(self, text: str) -> list[int]:
+        """<sos>, the characters' ids, <eos>."""
+        return [self.sos_idx] + [self.char2idx.get(ch, self.unk_idx) for ch in text] + [self.eos_idx]
 
     def decode(self, token_ids) -> str:
         """Ids -> string: skip <sos>/<pad>, stop at <eos>, unknown ids -> ''."""

@@ -1,0 +1,160 @@
+"""The training loop: staged learning rate, a random subset of the data each
+epoch, bucketed batches assembled on a background thread, losses kept on
+the device until a log point, an eye test, per-epoch metrics and
+checkpoints, and resume.
+
+The device is the caller's choice: ``device=None`` means the CUDA card, and
+without one ``train`` raises; ``device="cpu"`` runs the plain PyTorch
+versions of the kernels. Each epoch's sample order and random draws
+(augmentation, dropout) come from generators seeded by (seed, epoch), so a
+run resumed at an epoch boundary continues as the uninterrupted run would.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import queue
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import OCRConfig
+from ..infer.predictor import resolve_device, set_parity_mode
+from ..tokenizer import Tokenizer
+from .checkpoint import load_checkpoint_full, save_checkpoint
+from .data import LineDataset
+from .schedule import staged_cyclic_lr
+from .step import eval_logits, init_train_state, make_train_step, state_from
+
+logger = logging.getLogger(__name__)
+
+
+def _prefetched(gen, depth: int = 2):
+    """Run a generator on a background thread behind a bounded queue, so
+    that host-side batch assembly overlaps the device's steps."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    err: list[BaseException] = []
+    done = object()
+
+    def worker():
+        try:
+            for item in gen:
+                q.put(item)
+        except BaseException as e:  # re-raised on the consumer side
+            err.append(e)
+        finally:
+            q.put(done)
+
+    t = threading.Thread(target=worker, name="khmer-train-prefetch", daemon=True)
+    t.start()
+    while (item := q.get()) is not done:
+        yield item
+    t.join()
+    if err:
+        raise err[0]
+
+
+def _eye_test(tokenizer: Tokenizer, logits, labels) -> tuple[str, str]:
+    """The first sample's target and argmax prediction as text."""
+    pred = logits[0].argmax(dim=-1).cpu().numpy()
+    true = labels[0, 1:].cpu().numpy()
+    skip = {tokenizer.pad_idx, tokenizer.sos_idx, tokenizer.eos_idx}
+    to_text = lambda ids: "".join(tokenizer.idx2char.get(int(i), "") for i in ids if int(i) not in skip)
+    return to_text(true), to_text(pred)
+
+
+def _epoch_seed(seed: int, epoch: int) -> int:
+    return int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
+
+
+def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir="checkpoints", device=None,
+          log_every: int = 100, eye_test_every: int = 500, num_epochs: int | None = None, resume_from=None,
+          metrics_path=None):
+    """Train the configured model on ``dataset``; returns the final
+    TrainState. ``resume_from``: a checkpoint directory this loop saved
+    (params, statistics, moments and step restored; training continues with
+    the epoch after the one it closed)."""
+    device = resolve_device(device)
+    set_parity_mode()
+    config = config or OCRConfig()
+    tcfg = config.train
+    tokenizer = dataset.tokenizer
+    mcfg = dataclasses.replace(config.model, vocab_size=len(tokenizer), pad_idx=tokenizer.pad_idx)
+
+    sample_size = min(tcfg.epoch_sample_size, len(dataset))
+    steps_per_epoch = max(sample_size // tcfg.batch_size, 1)
+    schedule = staged_cyclic_lr(tcfg, steps_per_epoch)
+    state = init_train_state(mcfg, tcfg.seed, device)
+    start_epoch = 1
+    if resume_from is not None:
+        payload, ck_cfg = load_checkpoint_full(resume_from, device)
+        if ck_cfg != mcfg:
+            raise ValueError(f"checkpoint config {ck_cfg} != model config {mcfg}")
+        state = state_from(payload["params"], payload["batch_stats"], payload.get("opt_state"),
+                           int(payload.get("step", 0)))
+        # the epoch the checkpoint closed: bucket tails make an epoch's steps vary
+        start_epoch = int(payload.get("epoch", state.step // steps_per_epoch)) + 1
+        logger.info("resumed from %s at step %d (epoch %d)", resume_from, state.step, start_epoch)
+    chunk_geom = (config.preprocess.chunk_width, config.preprocess.chunk_stride)
+    aug_prob = tcfg.augment_prob if dataset.device_augment else 0.0
+    train_step = make_train_step(mcfg, chunk_geom, aug_prob, tcfg.adam_b1, tcfg.adam_b2)
+    # labels carry <sos> and <eos>; the teacher-forcing input (len - 1) must fit the decoder's positions
+    max_label_len = min(tcfg.max_label_len, mcfg.decode_max_len + 1)
+    pin = device.type == "cuda"
+
+    def produce(epoch_rng):
+        for batch in dataset.epoch_batches(tcfg.batch_size, epoch_rng, sample_size=sample_size,
+                                           max_label_len=max_label_len):
+            arrays = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.as_dict().items()}
+            yield {k: v.pin_memory() if pin else v for k, v in arrays.items()}
+
+    ckpt_dir = Path(checkpoint_dir)
+    total_epochs = num_epochs or tcfg.num_epochs
+    for epoch in range(start_epoch, total_epochs + 1):
+        logger.info("epoch %d/%d starting (%d samples, batch %d)", epoch, total_epochs, sample_size, tcfg.batch_size)
+        seed = _epoch_seed(tcfg.seed, epoch)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        epoch_loss, epoch_batches, since_log = 0.0, 0, 0
+        pending: list = []
+        last = None
+        t0 = ep_t0 = time.perf_counter()
+        for host_batch in _prefetched(produce(np.random.default_rng(seed))):
+            batch = {k: v.to(device, non_blocking=pin) for k, v in host_batch.items()}
+            state, metrics = train_step(state, batch, generator, schedule(state.step))
+            pending.append(metrics["loss"])
+            last = batch
+            epoch_batches += 1
+            since_log += 1
+            if epoch_batches % log_every == 0:
+                # losses stay on the device between log points: reading one per step would wait for the step
+                drained = torch.stack(pending).cpu().numpy()
+                pending.clear()
+                epoch_loss += float(drained.sum())
+                logger.info("epoch %d batch %d loss %.4f (%.1f lines/s)", epoch, epoch_batches,
+                            float(drained[-log_every:].mean()),
+                            since_log * tcfg.batch_size / (time.perf_counter() - t0))
+                since_log, t0 = 0, time.perf_counter()
+            if epoch_batches % eye_test_every == 0:
+                logits = eval_logits(state.params, state.batch_stats, last, mcfg, chunk_geom)
+                true, pred = _eye_test(tokenizer, logits, last["labels"])
+                logger.info("eye test | TRUE: %s | PRED: %s", true, pred)
+        if pending:
+            epoch_loss += float(torch.stack(pending).sum().cpu())
+        mean_loss = epoch_loss / max(epoch_batches, 1)
+        seconds = time.perf_counter() - ep_t0
+        logger.info("epoch %d done: mean loss %.4f over %d batches", epoch, mean_loss, epoch_batches)
+        if metrics_path is not None:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"epoch": epoch, "mean_loss": mean_loss, "batches": epoch_batches,
+                                    "seconds": seconds, "lines_per_sec": epoch_batches * tcfg.batch_size / seconds,
+                                    "lr": schedule(state.step - 1), "step": state.step}) + "\n")
+        if epoch % tcfg.checkpoint_every_epochs == 0 or epoch == total_epochs:
+            path = save_checkpoint(ckpt_dir / f"epoch{epoch:03d}", state.params, state.batch_stats, mcfg,
+                                   opt_state=state.opt_state, step=state.step, epoch=epoch)
+            logger.info("checkpoint saved: %s", path)
+    return state

@@ -1,0 +1,173 @@
+"""The training state and the teacher-forced train step.
+
+One step: the batch's lines are augmented, cut and normalised on the device
+("lines" layout; "chunks" batches come cut), the model runs in train mode
+(BatchNorm on batch statistics, dropout), the loss is the cross-entropy of
+``labels[:, 1:]`` given ``labels[:, :-1]``, averaged over the targets that
+are not padding, and the gradient moves the params by ``-lr`` times the Adam
+direction (b1 0.9, b2 0.999, eps 1e-8, bias-corrected, as optax's
+``scale_by_adam``). The learning rate is the caller's per step
+(train/schedule.py). Params and moments are updated in place, which keeps
+one copy of each on the device.
+
+Randomness (augmentation, then dropout) comes from one ``torch.Generator``
+on the device, drawn in a fixed order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models.layers import Dropout
+from ..models.ocr_model import forward_train, init_model
+from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
+from .device_augment import augment_lines
+
+ADAM_EPS = 1e-8
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: dict  # trainable float32 tensors (requires_grad)
+    batch_stats: dict  # BatchNorm running statistics
+    opt_state: dict  # {"mu": tree like params, "nu": tree like params, "count": int}
+    step: int
+
+
+def init_train_state(model_cfg: ModelConfig, seed: int = 0, device="cpu") -> TrainState:
+    """Seeded params (models/ocr_model.py::init_model) and zero moments."""
+    params, stats = init_model(model_cfg, seed, device)
+    return state_from(params, stats)
+
+
+def state_from(params: dict, batch_stats: dict, opt_state: dict | None = None, step: int = 0) -> TrainState:
+    """A TrainState over these trees (params set to require grad); zero
+    moments unless ``opt_state`` is given."""
+    params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    if opt_state is None:
+        opt_state = {"mu": tree_map(torch.zeros_like, params), "nu": tree_map(torch.zeros_like, params), "count": 0}
+    return TrainState(params, batch_stats, opt_state, step)
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A batch of numpy arrays -> tensors on ``device`` (through pinned
+    memory and an asynchronous copy on a CUDA device)."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+    return out
+
+
+def batch_chunks(batch: dict, generator, train: bool, chunk_geom: tuple[int, int], augment_prob: float):
+    """The model's (B, N, H, CW) input from either batch layout: "chunks"
+    as they come; "lines" (uint8) normalised, augmented in training when
+    ``augment_prob`` > 0, and cut on the device."""
+    if "lines" not in batch:
+        return batch["chunks"]
+    unit = u8_to_unit(batch["lines"])
+    if train and augment_prob > 0.0:
+        unit = augment_lines(unit, batch["widths"], generator, augment_prob=augment_prob)
+    return device_chunk(unit_normalize(unit), chunk_geom)
+
+
+def loss_fn(params, batch_stats, batch: dict, model_cfg: ModelConfig, generator=None, train: bool = True,
+            chunk_geom: tuple[int, int] = (100, 84), augment_prob: float = 0.0):
+    """-> (masked cross-entropy of the shifted labels, new batch_stats)."""
+    chunks = batch_chunks(batch, generator, train, chunk_geom, augment_prob)
+    drop = Dropout(model_cfg.dropout, deterministic=not train, generator=generator)
+    labels = batch["labels"].to(torch.long)
+    logits, new_stats = forward_train(params, batch_stats, chunks, batch["chunk_counts"], labels[:, :-1], model_cfg,
+                                      drop, train)
+    targets = labels[:, 1:]
+    mask = (targets != model_cfg.pad_idx).to(torch.float32)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0), new_stats
+
+
+@torch.no_grad()
+def adam_update(params: list, grads: list, opt_state: dict, lr: float, b1: float = 0.9, b2: float = 0.999):
+    """params -= lr * mu_hat / (sqrt(nu_hat) + eps), the moments and count
+    of ``opt_state`` moved first; all in place."""
+    mu, nu = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
+    opt_state["count"] += 1
+    count = opt_state["count"]
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    mu_hat = torch._foreach_div(mu, 1.0 - b1 ** count)
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, 1.0 - b2 ** count))
+    torch._foreach_add_(denom, ADAM_EPS)
+    torch._foreach_addcdiv_(params, mu_hat, denom, value=-lr)
+
+
+def make_train_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84), augment_prob: float = 0.0,
+                    b1: float = 0.9, b2: float = 0.999):
+    """-> train_step(state, batch, generator, lr) -> (state, {"loss",
+    "grad_norm"}), both 0-d tensors left on the device. ``batch``: a dict of
+    tensors on the params' device."""
+
+    def train_step(state: TrainState, batch: dict, generator, lr: float):
+        leaves = tree_leaves(state.params)
+        loss, new_stats = loss_fn(state.params, state.batch_stats, batch, model_cfg, generator, True, chunk_geom,
+                                  augment_prob)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        with torch.no_grad():
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        adam_update(leaves, list(grads), state.opt_state, lr, b1, b2)
+        state.batch_stats = new_stats
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return train_step
+
+
+def make_train_multi_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84),
+                          augment_prob: float = 0.0, b1: float = 0.9, b2: float = 0.999):
+    """-> multi_step(state, stacked, generator, lrs): K single steps in a
+    row over a batch dict whose tensors carry a leading K axis, with lrs
+    (K,); metrics come back as (K,) tensors."""
+    step = make_train_step(model_cfg, chunk_geom, augment_prob, b1, b2)
+
+    def multi_step(state: TrainState, stacked: dict, generator, lrs):
+        losses, norms = [], []
+        for k, lr in enumerate(lrs):
+            state, m = step(state, {key: v[k] for key, v in stacked.items()}, generator, float(lr))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        return state, {"loss": torch.stack(losses), "grad_norm": torch.stack(norms)}
+
+    return multi_step
+
+
+@torch.no_grad()
+def eval_logits(params, batch_stats, batch: dict, model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84)):
+    """Teacher-forced logits in inference mode (the loop's eye test)."""
+    chunks = batch_chunks(batch, None, False, chunk_geom, 0.0)
+    logits, _ = forward_train(params, batch_stats, chunks, batch["chunk_counts"],
+                              batch["labels"].to(torch.long)[:, :-1], model_cfg, None, False)
+    return logits

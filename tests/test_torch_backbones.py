@@ -136,7 +136,7 @@ def _port_main(tmp: Path) -> None:
             cfg = ModelConfig(backbone=name, **CFG)
             p, s, _ = load_npz(tmp / f"seeded_{name}.npz")
             seeded = params_from_jax(p, s, cfg)
-            out[f"backbone_{name}"] = BACKBONE_APPLY[name](seeded["backbone"], t(inp["chunks"])).numpy()
+            out[f"backbone_{name}"] = BACKBONE_APPLY[name](seeded["backbone"], t(inp["chunks"]))[0].numpy()
             mem, _ = encode(seeded, t(inp["enc_chunks"]), t(inp["enc_counts"]), cfg)
             meta[f"seeded_{name}"] = {"shape": list(mem.shape), "finite": bool(torch.isfinite(mem).all())}
 

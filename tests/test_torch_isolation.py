@@ -3,9 +3,9 @@
 * Importing ``khmer_ocr_torch`` (or every module of it) leaves JAX and the
   JAX package out of ``sys.modules``; no file of the port, nor chip_smoke.py,
   names the JAX package or imports JAX.
-* The entry points (the Predictor, ``recognize``, ``recognize_batch`` and the
-  CLI) need a CUDA card unless the caller asks for the CPU: without one they
-  raise. A kernel wrapper handed a tensor that is not on the
+* The entry points (the Predictor, ``recognize``, ``recognize_batch``, the
+  CLI, ``train()`` and the train CLI) need a CUDA card unless the caller asks
+  for the CPU: without one they raise. A kernel wrapper handed a tensor that is not on the
   CPU launches its kernel or raises; it never falls back to the plain version.
 
 The torch-side checks run in one subprocess (this file run as a script).
@@ -30,7 +30,8 @@ IMPORTS_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
 
 RAISES = ("predictor_without_device", "recognize_without_device", "recognize_batch_without_device",
           "cli_without_device", "lstm_wrapper_on_meta", "decode_step_wrapper_on_meta",
-          "decode_loop_wrapper_on_meta", "smem_probe_wrapper_on_meta")
+          "decode_loop_wrapper_on_meta", "smem_probe_wrapper_on_meta", "train_without_device",
+          "train_cli_without_device", "lstm_backward_wrapper_on_meta")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -40,7 +41,8 @@ for m in pkgutil.walk_packages(khmer_ocr_torch.__path__, "khmer_ocr_torch."):
 """
 
 
-@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL], ids=["package", "every_module"])
+@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.train.loop"],
+                         ids=["package", "every_module", "train_loop"])
 def test_import_loads_neither_jax_nor_the_jax_package(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'khmer_ocr_tpu')))"
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
@@ -68,11 +70,18 @@ def test_raises_without_card(no_card, case):
 
 def test_cpu_on_request_runs_and_kernels_stay_unlaunched(no_card):
     """Beam 3 on the CPU, with the host loop and with the whole-decode path:
-    the same strings, and none of the four kernels launched."""
+    the same strings, and none of the five kernels launched."""
     assert no_card["cpu_strings"] and all(isinstance(s, str) for s in no_card["cpu_strings"])
     assert no_card["cpu_strings_mega"] == no_card["cpu_strings"]
     assert no_card["mega_batches"] > 0
-    assert no_card["launches"] == [0, 0, 0, 0]
+    assert no_card["launches"] == [0, 0, 0, 0, 0]
+
+
+def test_train_on_cpu_on_request(no_card):
+    """train(device="cpu") at se_vgg with the BiLSTM takes its steps
+    through the plain versions of K1 and K1b: no kernel launched."""
+    assert no_card["train_steps"] == 2
+    assert no_card["train_launches"] == [0, 0]
 
 
 def _port_main(tmp: Path) -> None:
@@ -90,7 +99,10 @@ def _port_main(tmp: Path) -> None:
     from khmer_ocr_torch.infer import cli
     from khmer_ocr_torch.infer.api import set_predictor
     from khmer_ocr_torch.infer.predictor import Predictor
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, smem_probe
+    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, lstm_backward, smem_probe
+    from khmer_ocr_torch.train import cli as train_cli
+    from khmer_ocr_torch.train.data import LineDataset
+    from khmer_ocr_torch.train.loop import train
 
     torch.cuda.is_available = lambda: False  # the checks below are about a machine without a card
     cfg = ModelConfig(emb_dim=32, num_heads=4, enc_layers=1, dec_layers=1, enc_ffn_dim=64, max_global_len=256,
@@ -133,13 +145,27 @@ def _port_main(tmp: Path) -> None:
                                                   torch.zeros(2, 32, dtype=torch.bool, device="meta"), cfg,
                                                   DecodeConfig(beam_width=3, max_len=8)))
     attempt("smem_probe_wrapper_on_meta", lambda: smem_probe.smem_probe(torch.empty(8, 128, **meta), 2048))
+    attempt("lstm_backward_wrapper_on_meta",
+            lambda: lstm_backward.lstm_adjoint(torch.empty(1, 4, 768, **meta), torch.empty(1, 4, 192, **meta),
+                                               torch.empty(1, 4, 192, **meta), torch.empty(192, 768, **meta)))
+    from khmer_ocr_torch.config import OCRConfig, TrainConfig
+
+    ocfg = OCRConfig(model=cfg, train=TrainConfig(batch_size=2, epoch_sample_size=4, checkpoint_every_epochs=100))
+    dataset = LineDataset([(line, "ab") for line in synthetic_lines([1, 1, 1, 1], seed=1)], device_augment=True)
+    attempt("train_without_device", lambda: train(dataset, ocfg, tmp / "ck", num_epochs=1))
+    attempt("train_cli_without_device", lambda: train_cli.main(["--synthetic", "2", "--epochs", "1",
+                                                                "--checkpoint-dir", str(tmp / "cli")]))
+    state = train(dataset, ocfg, tmp / "ck_cpu", device="cpu", num_epochs=1)
+    res["train_steps"] = state.step
+    res["train_launches"] = [lstm.launches, lstm_backward.launches]
     pred = Predictor(params=params, batch_stats=stats, model_cfg=cfg, device="cpu")
     set_predictor(pred)
     res["cpu_strings"] = khmer_ocr_torch.recognize_batch(lines, beam_width=3)
     os.environ["KHMER_OCR_MEGA_DECODE"] = "1"
     res["cpu_strings_mega"] = khmer_ocr_torch.recognize_batch(lines, beam_width=3)
     res["mega_batches"] = pred.mega_batches
-    res["launches"] = [lstm.launches, decode_step.launches, decode_loop.launches, smem_probe.launches]
+    res["launches"] = [lstm.launches, lstm_backward.launches, decode_step.launches, decode_loop.launches,
+                       smem_probe.launches]
     (tmp / "result.json").write_text(json.dumps(res))
 
 

@@ -309,7 +309,7 @@ def _port_main(tmp: Path) -> None:
         toy_cfg = ModelConfig(**TOY)
         p, s, _ = load_npz(tmp / "toy.npz")
         toy = params_from_jax(p, s, toy_cfg)
-        out["backbone"] = se_vgg_apply(toy["backbone"], t(inp["chunks"])).numpy()
+        out["backbone"] = se_vgg_apply(toy["backbone"], t(inp["chunks"]))[0].numpy()
         # two lines of 2 and 3 chunks in one 4-chunk bucket: chunk_counts < N
         wb = 3 * 84 + 100
         u8 = np.stack([np.pad(l, ((0, 0), (0, wb - l.shape[1])), constant_values=255)
