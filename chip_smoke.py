@@ -43,7 +43,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      resnet backbones (no BiLSTM) on the 12 short lines through K3, memory and
      tokens against the plain path;
   8. training at the flagship configuration (seeded weights): K1 with its
-     cell-state output and K1b (the LSTM's adjoint) against their plain
+     cell-state output and K1b (the LSTM's adjoint, by both its routes:
+     clusters with W_hh in registers, one CTA per batch tile; the one
+     geometry.k1b_route picks timed as the kernel) against their plain
      versions at (directions, B, T) = (2, 32, 512), (2, 8, 128), (1, 1,
      4096), h, c, dz and dW_hh within 1e-4 (K1b beside cuDNN's nn.LSTM
      backward); one step of batch 32 x 16 chunks, 256 labels, by the kernel
@@ -319,8 +321,10 @@ def library_lstm_backward_ms(torch, xg, w, dh, reps):
 
 def phase_k1b(torch):
     """K1b (the LSTM's adjoint) against the plain backward at the training
-    path's shapes: dz, and the dxg and dW_hh LSTMRecurrence makes of it;
-    timed beside the plain version, the whole backward and cuDNN's."""
+    path's shapes, by both routes (clusters with W_hh in registers, one CTA
+    per batch tile): dz, and the dW_hh LSTMRecurrence makes of it; the route
+    geometry.k1b_route picks is the kernel's time, the other is printed
+    beside it, with the plain version, the whole backward and cuDNN's."""
     from khmer_ocr_torch.ops.kernels import geometry
     from khmer_ocr_torch.ops.kernels import lstm as K
     from khmer_ocr_torch.ops.kernels import lstm_backward as KB
@@ -331,37 +335,48 @@ def phase_k1b(torch):
         xg, w = lstm_inputs(torch, gen, ndir, b, t)
         dh = torch.randn(*xg.shape[:-1], 192, device="cuda", generator=gen)
         shape = f"{ndir}x B={b} T={t}" if ndir == 2 else f"B={b} T={t}"
+        chosen = geometry.k1b_route(b, 192, ndir)
+        routes = {"cluster": (geometry.CLUSTER_CTAS, geometry.cluster_rows(b, ndir)),
+                  "tile": (0, geometry.k1b_rows(b, ndir))}
+        reps = 3 if b * t >= 4096 else 10
+        times, err = {}, 0.0
         with torch.no_grad():
             h, c = K.lstm_recurrence(xg, w, with_cell=True)
             hp = torch.cat([torch.zeros_like(h[..., :1, :]), h[..., :-1, :]], dim=-2).reshape(*h.shape[:-3], -1, 192)
             gates = (xg.reshape(*hp.shape[:-1], -1) + hp @ w).reshape(xg.shape)
             dz_ref = KB.lstm_adjoint_plain(gates, c, dh, w)
-            dz = KB.lstm_adjoint(gates, c, dh, w)
-            torch.cuda.synchronize()
-            dw_ref, dw = (hp.transpose(-1, -2) @ z.reshape(*hp.shape[:-1], -1) for z in (dz_ref, dz))
-            err = 0.0
-            for what, got, ref in (("dz = dxg", dz, dz_ref), ("dW_hh", dw, dw_ref)):
-                e = (got - ref).abs().max().item()
-                if not e <= TOL * max(1.0, ref.abs().max().item()) or not torch.isfinite(got).all():
-                    fail(f"K1b {shape}: {what} max |kernel - plain| = {e:.3e} > {TOL} x max(1, |ref|)")
-                err = max(err, e)
-            reps = 3 if b * t >= 4096 else 10
-            ms = cuda_ms(torch, lambda: KB.lstm_adjoint(gates, c, dh, w), reps)
+            dw_ref = hp.transpose(-1, -2) @ dz_ref.reshape(*hp.shape[:-1], -1)
+            for name, route in routes.items():
+                dz = KB.lstm_adjoint_kernel(gates, c, dh, w, route)
+                torch.cuda.synchronize()
+                dw = hp.transpose(-1, -2) @ dz.reshape(*hp.shape[:-1], -1)
+                for what, got, ref in (("dz = dxg", dz, dz_ref), ("dW_hh", dw, dw_ref)):
+                    e = (got - ref).abs().max().item()
+                    if not e <= TOL * max(1.0, ref.abs().max().item()) or not torch.isfinite(got).all():
+                        fail(f"K1b {shape} {name} route {route}: {what} max |kernel - plain| = {e:.3e} > {TOL} x "
+                             f"max(1, |ref|)")
+                    err = max(err, e)
+                times[name] = cuda_ms(torch, lambda: KB.lstm_adjoint_kernel(gates, c, dh, w, route), reps)
             plain_ms = cuda_ms(torch, lambda: KB.lstm_adjoint_plain(gates, c, dh, w), 1, warmup=0)
         xr, wr = xg.clone().requires_grad_(True), w.clone().requires_grad_(True)
         out = K.LSTMRecurrence.apply(xr, wr)
         backward_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (xr, wr), dh, retain_graph=True), reps)
         library_ms = library_lstm_backward_ms(torch, xg, w, dh, reps)
         worst = max(worst, err)
+        name = "cluster" if chosen[0] else "tile"
+        other = "tile" if chosen[0] else "cluster"
+        ms = times[name]
         g = 4 * 192
         nbytes = 4 * ndir * (b * t * (g + 2 * 192 + g) + 192 * g)
         ops = ndir * (2 * b * t * g * 192 + 30 * b * t * 192)
         bms, by = bound_ms(nbytes, ops)
-        rows.append(dict(shape=shape, rows=geometry.k1b_rows(b, ndir), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         backward_ms=backward_ms, library_ms=library_ms, bound_ms=bms, bound_by=by))
-        print(f"[K1b] {shape:18s}: max|diff| dz, dW_hh {err:.2e}; kernel ({geometry.k1b_rows(b, ndir)} rows a CTA) "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms; whole backward (gates, K1b, dW_hh) {backward_ms:.3f} ms; "
-              f"cuDNN nn.LSTM backward {library_ms:.3f} ms; bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
+        rows.append(dict(shape=shape, route=name, rows=chosen[1], max_abs_err=err, ms=ms, cluster_ms=times["cluster"],
+                         tile_ms=times["tile"], plain_ms=plain_ms, backward_ms=backward_ms, library_ms=library_ms,
+                         bound_ms=bms, bound_by=by))
+        print(f"[K1b] {shape:18s}: max|diff| dz, dW_hh {err:.2e} (both routes); kernel, {name} route {chosen}: "
+              f"{ms:.3f} ms ({other} route {routes[other]}: {times[other]:.3f} ms), plain {plain_ms:.3f} ms; whole "
+              f"backward (gates, K1b, dW_hh) {backward_ms:.3f} ms; cuDNN nn.LSTM backward {library_ms:.3f} ms; bound "
+              f"{bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
     return rows, worst
 
 
@@ -668,11 +683,15 @@ def phase_k4(torch):
     stream = torch.cuda.current_stream().cuda_stream
     build.check(empty(stream), "empty_launch")
     empty_ms = cuda_ms(torch, lambda: empty(stream), 10)
-    print(f"[K4] {ms:.4f} ms a probe launch (zeros_like, attribute, launch, synchronise); one empty launch and "
-          f"synchronise {empty_ms:.4f} ms; plain {plain_ms:.4f} ms")
+    # the launcher alone, on the same pointers and stream: the probe's launch without the wrapper's tensor work
+    launcher, xp, op = K._launcher(), x.data_ptr(), out.data_ptr()
+    launcher_ms = cuda_ms(torch, lambda: launcher(xp, op, best, stream), 10)
+    print(f"[K4] {ms:.4f} ms a probe launch (empty output, launch, synchronise; the attribute set once) = "
+          f"{ms / empty_ms:.2f}x one empty launch and synchronise {empty_ms:.4f} ms; the launcher alone "
+          f"{launcher_ms:.4f} ms; plain {plain_ms:.4f} ms")
     return dict(shape=f"(8, 128) through {best} B", max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bms, bound_by=by, launches=launches, max_bytes=best, refused_bytes=refused,
-                attribute_bytes=attr, empty_launch_ms=empty_ms)
+                attribute_bytes=attr, empty_launch_ms=empty_ms, launcher_ms=launcher_ms)
 
 
 class PlainLSTM:
@@ -1132,7 +1151,9 @@ def main() -> int:
               train_launches=tr["k1_launches"]),
         # launches: one train step's (the training path)
         entry("lstm_adjoint", "lstm_backward.cu", tpu_kernel_site("ops/pallas/lstm.py", "_vjp_bwd"),
-              tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"]),
+              tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"],
+              kernel_route=f"{k1b_main['route']}, {k1b_main['rows']} rows", cluster_ms=k1b_main["cluster_ms"],
+              tile_ms=k1b_main["tile_ms"]),
         entry("decoder_layer_step", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
               k2_err, k2_main, k2_rows),
@@ -1144,7 +1165,7 @@ def main() -> int:
         # launches: the probe's ladder and bisection, K4's path
         entry("smem_probe", "smem_probe.cu", tpu_kernel_site("probe_vmem.py", "try_mb"), k4["launches"],
               k4["max_abs_err"], k4, [], max_bytes=k4["max_bytes"], attribute_bytes=k4["attribute_bytes"],
-              empty_launch_ms=k4["empty_launch_ms"]),
+              empty_launch_ms=k4["empty_launch_ms"], launcher_ms=k4["launcher_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -42,7 +42,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 FAMILIES = (  # first match wins
     ("K1 lstm_recurrence", ("lstm_recurrence_kernel", "lstm_cluster_kernel")),
-    ("K1b lstm_adjoint", ("lstm_backward_kernel",)),
+    ("K1b lstm_adjoint", ("lstm_backward_kernel", "lstm_backward_cluster_kernel")),
     ("K2 decoder_layer_step", ("decoder_layer_step_kernel",)),
     ("K3 fused_beam_decode", ("fused_beam_decode_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop", "winograd")),

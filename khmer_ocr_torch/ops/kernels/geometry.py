@@ -2,7 +2,7 @@
 
 Plain Python (no torch), so the CPU tests check these rules in any process.
 The measured numbers behind the constants come from
-examples/k1_routes_torch.py (K1) and chip_smoke.py's [K2] and [K3] phases
+examples/k1_routes_torch.py (K1, and K1b with --adjoint) and chip_smoke.py's [K2] and [K3] phases
 on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
 """
 
@@ -39,6 +39,15 @@ def tile_rows(batch: int) -> int:
     return 1
 
 
+def cluster_rows(batch: int, ndir: int = 1) -> int:
+    """Batch rows per cluster of a cluster route (K1's and K1b's): the fewest
+    that keep every cluster in the first wave, else the most."""
+    for rows in CLUSTER_ROWS:
+        if ndir * math.ceil(batch / rows) <= MAX_CLUSTERS:
+            return rows
+    return CLUSTER_ROWS[-1]
+
+
 def k1_route(batch: int, hidden: int, ndir: int = 1) -> tuple[int, int]:
     """(route, rows) for ``batch`` rows in each of ``ndir`` directions.
     Route 0 is the tile route (one CTA per ``rows`` batch rows); any other
@@ -47,21 +56,35 @@ def k1_route(batch: int, hidden: int, ndir: int = 1) -> tuple[int, int]:
     rows per cluster that keep every cluster in the first wave."""
     if hidden != CLUSTER_HIDDEN or batch >= TILE_FROM_BATCH[min(ndir, 2)]:
         return 0, tile_rows(batch)
-    for rows in CLUSTER_ROWS:
-        if ndir * math.ceil(batch / rows) <= MAX_CLUSTERS:
-            return CLUSTER_CTAS, rows
-    return CLUSTER_CTAS, CLUSTER_ROWS[-1]
+    return CLUSTER_CTAS, cluster_rows(batch, ndir)
 
 
 def k1b_rows(batch: int, ndir: int = 1) -> int:
-    """Batch rows per CTA of K1b (csrc/lstm_backward.cu, one CTA per tile
-    and direction): the fewest that keep every CTA on its own SM. A step's
-    time is one SM's pass over W_hh from L2 whatever the rows, so more rows
-    help only once the CTAs outnumber the SMs."""
+    """Batch rows per CTA of K1b's tile route (csrc/lstm_backward.cu, one
+    CTA per tile and direction): the fewest that keep every CTA on its own
+    SM. A step's time is one SM's pass over W_hh from L2 whatever the rows,
+    so more rows help only once the CTAs outnumber the SMs."""
     for rows in CLUSTER_ROWS:
         if ndir * math.ceil(batch / rows) <= SMS:
             return rows
     return CLUSTER_ROWS[-1]
+
+
+def k1b_route(batch: int, hidden: int, ndir: int = 1) -> tuple[int, int]:
+    """(route, rows) of K1b, as ``k1_route`` for K1: the cluster route (8
+    CTAs a cluster, W_hh in registers) with ``cluster_rows`` rows a cluster
+    for hidden width 192, which it is compiled for; else the tile route with
+    ``k1b_rows`` rows a CTA. Unlike K1's, K1b's cluster route has no batch
+    crossover: it measured faster than the tile route, or level with it, at
+    every batch swept (examples/k1_routes_torch.py --adjoint, T = 256,
+    NVIDIA H100 80GB HBM3 at 700 W; 2 directions: 32 rows 0.749 against
+    2.024 ms, 512 rows 6.394 against 6.761, 1024 rows 12.556 against 12.681,
+    2048 rows 24.580 against 25.058; 1 direction: 2048 rows 12.581 against
+    12.689). From about 1000 rows in all both routes grow by waves of about
+    the same cost."""
+    if hidden != CLUSTER_HIDDEN:
+        return 0, k1b_rows(batch, ndir)
+    return CLUSTER_CTAS, cluster_rows(batch, ndir)
 
 
 def cluster_slices(hidden: int, ctas: int) -> list[list[int]]:

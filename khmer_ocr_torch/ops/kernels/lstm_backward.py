@@ -11,6 +11,10 @@ With a leading direction axis on every argument the directions run in one
 launch. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. ops/kernels/lstm.py::LSTMRecurrence builds the backward
 around it.
+
+The kernel has two routes, chosen by ``geometry.k1b_route`` from the shape:
+clusters of 8 CTAs that keep W_hh in registers (hidden width 192), and one
+CTA per batch tile that streams W_hh^T from L2 (other widths).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import ctypes
 import torch
 
 from . import build
-from .geometry import k1b_rows
+from .geometry import CLUSTER_HIDDEN, k1b_route
 
 launches = 0  # kernel launches since the last reset_launches()
 
@@ -66,8 +70,9 @@ def lstm_adjoint(gates, c, dh, w_hh):
     return lstm_adjoint_kernel(gates, c, dh, w_hh)
 
 
-def lstm_adjoint_kernel(gates, c, dh, w_hh):
-    """The kernel on CUDA tensors, ``geometry.k1b_rows`` batch rows a CTA."""
+def lstm_adjoint_kernel(gates, c, dh, w_hh, route: tuple[int, int] | None = None):
+    """The kernel on CUDA tensors, by ``geometry.k1b_route``'s (route, rows)
+    or the one given: route 0 is the tile route, 8 the cluster route."""
     global launches
     args = (gates, c, dh, w_hh)
     if not all(x.is_cuda and x.device == gates.device for x in args):
@@ -86,18 +91,22 @@ def lstm_adjoint_kernel(gates, c, dh, w_hh):
         raise ValueError("lstm_adjoint: gates, c and dh must be contiguous")
     ndir = gates.shape[0] if stacked else 1
     b, t = lead[-2:]
+    kind, rows = k1b_route(b, hidden, ndir) if route is None else route
+    if kind and hidden != CLUSTER_HIDDEN:
+        raise ValueError(f"lstm_adjoint: the cluster route is compiled for H={CLUSTER_HIDDEN}, got {hidden}")
     dz = torch.empty_like(gates)
     if b == 0 or t == 0 or ndir == 0:
         return dz
-    wt = w_hh.transpose(-1, -2).contiguous()  # (ndir, 4H, H): neighbouring threads read neighbouring units
-    rows = k1b_rows(b, ndir)
+    # the cluster route reads W_hh (H, 4H) as it is; the tile route W_hh^T (4H, H), so that
+    # neighbouring threads read neighbouring units
+    w = w_hh.contiguous() if kind else w_hh.transpose(-1, -2).contiguous()
     lib = build.load("lstm_backward")
     fn = lib.lstm_backward_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(gates.device).cuda_stream
-    err = fn(gates.data_ptr(), c.data_ptr(), dh.data_ptr(), wt.data_ptr(), dz.data_ptr(), ndir, b, t, hidden, rows,
-             stream)
-    build.check(err, f"lstm_adjoint ({rows} rows)")
+    err = fn(gates.data_ptr(), c.data_ptr(), dh.data_ptr(), w.data_ptr(), dz.data_ptr(), ndir, b, t, hidden, kind,
+             rows, stream)
+    build.check(err, f"lstm_adjoint (route {kind}, {rows} rows)")
     launches += 1
     return dz

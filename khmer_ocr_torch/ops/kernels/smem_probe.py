@@ -4,7 +4,8 @@ its plain version and the bisection.
 ``smem_probe(x, nbytes)``: x (8, 128) float32 -> out (8, 128) with row 0 =
 x[0] + 2 x[0], computed through a buffer of ``nbytes`` of dynamic shared
 memory whose first and last rows the kernel writes; rows 1-7 are zero (the
-TPU kernel leaves them unset). A CPU tensor takes the plain version; a CUDA
+TPU kernel leaves them unset; the CUDA kernel writes them, so its output needs
+no fill). A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
 
 ``try_bytes(nbytes)`` launches on the card and says whether the card took the
@@ -17,6 +18,7 @@ JAX package's examples/probe_vmem.py bisects VMEM to 4 MB.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,6 +51,16 @@ def smem_probe(x: torch.Tensor, nbytes: int) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def _launcher():
+    """The kernel's ctypes launcher, bound once: a probe's time is the host's
+    work around one launch."""
+    fn = build.load("smem_probe").smem_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _run(x: torch.Tensor, nbytes: int) -> tuple[torch.Tensor, int]:
     """Launch and synchronise; returns (out, the launcher's cudaError_t)."""
     global launches
@@ -57,12 +69,11 @@ def _run(x: torch.Tensor, nbytes: int) -> tuple[torch.Tensor, int]:
                            f"{tuple(x.shape)} {x.dtype} on {x.device}")
     if nbytes < 2 * ROW_BYTES or nbytes % ROW_BYTES:
         raise ValueError(f"smem_probe: {nbytes} bytes is not a multiple of {ROW_BYTES} of at least two rows")
-    lib = build.load("smem_probe")
-    out = torch.zeros_like(x)
-    fn = lib.smem_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), out.data_ptr(), nbytes, torch.cuda.current_stream(x.device).cuda_stream)
+    out = torch.empty_like(x)  # the kernel writes every row
+    # the current stream's handle; torch.cuda.current_stream() builds a Stream object for it, which costs
+    # more host time than the launch itself
+    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
+    err = _launcher()(x.data_ptr(), out.data_ptr(), nbytes, stream)
     if err == 0:
         launches += 1
     return out, err
