@@ -5,6 +5,7 @@
 
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
+     whether Pillow, OpenCV and safetensors import there (nothing needs them);
   2. build: the five CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
      one nvcc each, all at once;
   3. K1 (LSTM recurrence) against its plain version and cuDNN's nn.LSTM at
@@ -42,7 +43,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
      takes the three batches of 1-4 chunks, K2 the rest); beam 5; the vgg and
      resnet backbones (no BiLSTM) on the 12 short lines through K3, memory and
      tokens against the plain path;
-  8. training at the flagship configuration (seeded weights): K1 with its
+  8. the flagship's real weights (checkpoints/se_vgg_flagship through the
+     weights index khmer_ocr_torch/assets/flagship, loaded by
+     Predictor(model_path=...)) on the 64 rendered lines of
+     khmer_ocr_torch/assets/real_lines.npz, beam 3, max_len 64, batch 8:
+     memory against the plain path for each bucket batch; the host loop (K1,
+     K2) and then KHMER_OCR_MEGA_DECODE=1 (K3 takes the batches inside its
+     envelope), each request's strings equal to the JAX package's stored
+     with the lines, near-ties excepted, with launch counts; the strings
+     scored by the port's metrics (levenshtein_batch built with g++ there and
+     held equal to the numpy DP on every pair), mean CER and exact match
+     equal to the stored JAX values;
+  9. training at the flagship configuration (seeded weights): K1 with its
      cell-state output and K1b (the LSTM's adjoint, by both its routes:
      clusters with W_hh in registers, one CTA per batch tile; the one
      geometry.k1b_route picks timed as the kernel) against their plain
@@ -55,8 +67,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (khmer_ocr_torch/assets/train_golden.json, 1e-4 relative); 50 steps
      on 4 samples overfit; two epochs of train() on 256 synthetic lines with
      device augmentation and dropout, checkpoints and a resume;
-  9. one JSON line with every kernel's numbers;
- 10. the last line: {"ok": true, "device": {...}}.
+ 10. one JSON line with every kernel's numbers;
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Times come from CUDA events after warm-up (K2's device time from a
 replayed CUDA graph of launches). ``bound_ms`` is the larger of the
@@ -66,6 +78,7 @@ float32 peak of 67 TFLOP/s (H100 SXM data sheet).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -157,6 +170,15 @@ def phase_device(torch):
     set_parity_mode()
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name} x{torch.cuda.device_count()}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    probe = ("import importlib\n"
+             "for m in ('PIL', 'cv2', 'safetensors'):\n"
+             "    try:\n"
+             "        importlib.import_module(m)\n"
+             "        print(m, 'imports')\n"
+             "    except Exception as e:\n"
+             "        print(m, 'does not import:', type(e).__name__)\n")
+    found = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, timeout=120).stdout
+    print(f"[device] host packages the run needs none of: {'; '.join(found.splitlines())}")
     return name, smi[0]
 
 
@@ -776,7 +798,7 @@ def phase_train(torch, smi):
     import tempfile
 
     from khmer_ocr_torch.config import ModelConfig, OCRConfig, TrainConfig
-    from khmer_ocr_torch.train.cli import synthetic_dataset
+    from khmer_ocr_torch.data.synthetic import synthetic_dataset
     from khmer_ocr_torch.train.loop import train
     from khmer_ocr_torch.train.step import batch_to_device, init_train_state, loss_fn, make_train_step, tree_leaves
 
@@ -913,7 +935,7 @@ def strip(row) -> list[int]:
     return out
 
 
-def check_tokens(torch, pred, lines, golden_rows, got_rows, label: str) -> int:
+def check_tokens(torch, pred, lines, golden_rows, got_rows, label: str, tag: str = "e2e") -> int:
     """Count lines whose tokens differ, failing unless each is a near-tie."""
     differ = 0
     for i, (ref, got) in enumerate(zip(golden_rows, got_rows)):
@@ -927,7 +949,7 @@ def check_tokens(torch, pred, lines, golden_rows, got_rows, label: str) -> int:
                                      torch.tensor(ref, device="cuda"))
         s_got = teacher_forced_score(torch, pred.params, pred.model_cfg, u8, cnt,
                                      torch.tensor(got, device="cuda"))
-        print(f"[e2e] {label}: line {i} differs: {ref} vs {got}; normalised scores {s_ref:.7f} vs {s_got:.7f}")
+        print(f"[{tag}] {label}: line {i} differs: {ref} vs {got}; normalised scores {s_ref:.7f} vs {s_got:.7f}")
         if not abs(s_ref - s_got) < NEAR_TIE:
             fail(f"{label}: line {i} differs and is not a near-tie (|{s_ref} - {s_got}| >= {NEAR_TIE})")
     return differ
@@ -969,12 +991,12 @@ def counted_run(torch, pred, lines, bw, bs, max_len):
     return rows, counts, wall
 
 
-def check_run(cfg, rows, counts, want: dict, label: str) -> list:
+def check_run(cfg, rows, counts, want: dict, label: str, tag: str = "e2e") -> list:
     """Launch counts as expected (and non-zero where expected), tokens in
     the vocabulary; the stripped rows."""
     import numpy as np
 
-    print(f"[e2e] {label}: launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']} "
+    print(f"[{tag}] {label}: launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']} "
           f"(expected {want['k1']}, {want['k2']}, {want['k3']}); {counts['steps']} host-loop decode steps, "
           f"{counts['mega']} whole-decode batches")
     if any(counts[k] != v for k, v in want.items()) or counts["k4"]:
@@ -985,7 +1007,7 @@ def check_run(cfg, rows, counts, want: dict, label: str) -> list:
     return [strip(r) for r in rows]
 
 
-def check_memory(torch, pred, lines, bs, label: str) -> float:
+def check_memory(torch, pred, lines, bs, label: str, tag: str = "e2e") -> float:
     """Memory of the kernel path against the plain path for each bucket batch
     of ``lines``: the worst difference over valid positions."""
     from khmer_ocr_torch.models.ocr_model import encode
@@ -1002,7 +1024,7 @@ def check_memory(torch, pred, lines, bs, label: str) -> float:
                 mem_p, _ = encode(pred.params, chunks, cnt, pred.model_cfg)
         err = (mem_k - mem_p)[~pad].abs().max().item()
         finite = bool(torch.isfinite(mem_k).all())
-        print(f"[e2e] {label}: memory of lines {batch.indices} (bucket {batch.bucket_n}): max|kernel path - plain "
+        print(f"[{tag}] {label}: memory of lines {batch.indices} (bucket {batch.bucket_n}): max|kernel path - plain "
               f"path| {err:.2e}")
         if not err <= TOL or not finite:
             fail(f"{label}: memory differs by {err:.3e} > {TOL} (finite: {finite})")
@@ -1105,6 +1127,98 @@ def phase_e2e(torch, gpu_name, smi):
     return results
 
 
+def phase_real(torch, smi):
+    """The flagship's real weights on the card: the weights directory
+    (khmer_ocr_torch/assets/flagship, an index into
+    checkpoints/se_vgg_flagship) loaded by Predictor(model_path=...), the 64
+    rendered lines of khmer_ocr_torch/assets/real_lines.npz decoded at beam 3
+    by the host loop (K1, K2) and with KHMER_OCR_MEGA_DECODE=1 (K3 inside its
+    envelope), each against the JAX package's strings stored with the lines,
+    near-ties excepted; memory against the plain path for each bucket batch;
+    CER and exact match by the port's scoring against the stored JAX values."""
+    import numpy as np
+
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.metrics import levenshtein, score
+    from khmer_ocr_torch.native import levenshtein_batch, load_native_library
+    from khmer_ocr_torch.train.step import tree_leaves
+
+    assets = ROOT / "khmer_ocr_torch" / "assets"
+    meta = json.loads((assets / "real_lines.json").read_text())
+    with np.load(assets / "real_lines.npz") as z:
+        lines = [z[f"line_{i}"] for i in range(len(z.files))]
+    bw, max_len, bs = (meta["recipe"][k] for k in ("beam_width", "max_len", "batch_size"))
+    weights = assets / "flagship"
+    index = json.loads((weights / "index.json").read_text())
+    chunk_bytes = sum(e.get("length", 0) for e in index["leaves"])
+    dir_bytes = sum(f.stat().st_size for f in weights.iterdir())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = Predictor(model_path=weights)  # no device given: the CUDA card
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in tree_leaves(pred.params))
+    print(f"[real] Predictor(model_path={weights.relative_to(ROOT)}) on {pred.device}: {load_s:.2f} s; the directory "
+          f"{dir_bytes} B, the checkpoint chunks it reads {chunk_bytes} B ({len(index['leaves'])} leaves); "
+          f"{n_params} values on the card (BatchNorm statistics included)")
+    if pred.device.type != "cuda":
+        fail(f"real: Predictor picked {pred.device}, not the card")
+    cfg = pred.model_cfg
+
+    check_memory(torch, pred, lines, bs, "flagship", tag="real")
+    batches = list(pred.preprocessor.iter_batches(lines, max_batch=bs))
+    n_batches = len(batches)
+    n_mega = sum(1 for b in batches if 32 * b.bucket_n <= 128)  # K3's envelope at beam 3, max_len 64
+    jax_rows = [pred.tokenizer.encode(t) for t in meta["strings"]]
+    out = {}
+    for mode in ("k2", "k3"):
+        with MegaDecode() if mode == "k3" else contextlib.nullcontext():
+            pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
+            rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
+        label = f"beam {bw}, max_len {max_len}" + (", KHMER_OCR_MEGA_DECODE=1" if mode == "k3" else "")
+        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=n_mega if mode == "k3" else 0)
+        if mode == "k3":
+            want["mega"] = n_mega
+        got = check_run(cfg, rows, c, want, label, tag="real")
+        if c[mode] == 0 or (mode == "k3" and n_mega == 0):
+            fail(f"real {label}: {mode.upper()} never launched ({n_mega} batches inside K3's envelope)")
+        strings = [pred.tokenizer.decode(r) for r in got]
+        differ = [i for i, (a, b) in enumerate(zip(strings, meta["strings"])) if a != b]
+        n_diff = check_tokens(torch, pred, [lines[i] for i in differ], [jax_rows[i] for i in differ],
+                              [got[i] for i in differ], f"{label} vs the JAX package (lines {differ})", tag="real")
+        print(f"[real] {label}: {len(lines)} lines in {n_batches} batches, {wall * 1e3:.1f} ms "
+              f"({len(lines) / wall:.1f} lines/s) on {smi}; {len(lines) - n_diff}/{len(lines)} strings equal to "
+              f"the JAX package's")
+        out[mode] = dict(strings=strings, n_diff=n_diff, ms=wall * 1e3, lines_per_s=len(lines) / wall, **c)
+
+    t0 = time.perf_counter()
+    load_native_library()
+    build_s = time.perf_counter() - t0
+    texts, names = meta["texts"], [f"line_{i}" for i in range(len(lines))]
+    refs = texts * 3
+    hyps = meta["strings"] + out["k2"]["strings"] + out["k3"]["strings"]
+    native, plain = levenshtein_batch(refs, hyps).tolist(), [levenshtein(r, h) for r, h in zip(refs, hyps)]
+    print(f"[real] levenshtein_batch (g++, {build_s:.2f} s to build and load): {len(refs)} pairs equal to the numpy "
+          f"DP: {native == plain}")
+    if native != plain:
+        fail("real: levenshtein_batch differs from the numpy DP")
+    ref = score(names, texts, meta["strings"])
+    if (ref.mean_cer, ref.exact_match_accuracy) != (meta["mean_cer"], meta["exact_match"]):
+        fail(f"real: the JAX strings score {ref.summary()} here, against {meta['mean_cer']}, {meta['exact_match']} "
+             "stored")
+    for mode in ("k2", "k3"):
+        res = score(names, texts, out[mode]["strings"])
+        same = (res.mean_cer, res.exact_match_accuracy) == (meta["mean_cer"], meta["exact_match"])
+        print(f"[real] {mode.upper()} request: mean CER {res.mean_cer:.6f}, exact match {res.exact_match_accuracy:.4f} "
+              f"(JAX: {meta['mean_cer']:.6f}, {meta['exact_match']:.4f}; equal: {same}), "
+              f"{out[mode]['lines_per_s']:.1f} lines/s on {smi}")
+        if not same and out[mode]["n_diff"] == 0:
+            fail(f"real {mode}: the same strings score differently")
+        out[mode].update(mean_cer=res.mean_cer, exact_match=res.exact_match_accuracy)
+    return dict(load_s=load_s, n_params=n_params, chunk_bytes=chunk_bytes, **{
+        k: {kk: v for kk, v in d.items() if kk != "strings"} for k, d in out.items()})
+
+
 def main() -> int:
     if not (ROOT / "khmer_ocr_torch" / "__init__.py").exists():
         print("khmer_ocr_torch not found next to chip_smoke.py: run it from a checkout of the repository",
@@ -1131,6 +1245,8 @@ def main() -> int:
     k3_rows, k3_err, k3_resident = phase_k3(torch, state, ModelConfig())
     k4 = phase_k4(torch)
     e2e = phase_e2e(torch, gpu_name, smi)
+    real = phase_real(torch, smi)
+    print(f"[real] {json.dumps(real)}")
     tr = phase_train(torch, smi)
 
     main_len = min(k for k in e2e if isinstance(k, int))

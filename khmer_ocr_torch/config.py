@@ -19,12 +19,15 @@ from dataclasses import dataclass, field
 class PreprocessConfig:
     """Line geometry: resize to ``img_height`` keeping the aspect ratio (width
     floored at ``min_width``), cut into ``chunk_width``-px windows that overlap
-    by ``chunk_overlap`` px, white-pad the last one, normalise (x - 0.5) / 0.5."""
+    by ``chunk_overlap`` px, white-pad the last one, normalise (x - 0.5) / 0.5.
+    ``binarize``: the binarized evaluation variant, a 5x5 Gaussian blur and
+    an Otsu threshold before the resize (preprocess.py::binarize_image)."""
 
     img_height: int = 48
     chunk_width: int = 100
     chunk_overlap: int = 16
     min_width: int = 50
+    binarize: bool = False
 
     @property
     def chunk_stride(self) -> int:

@@ -17,7 +17,9 @@ and never imports JAX:
     params without the statistics, and the statistics apart.
     ``params_to_jax`` is the inverse of both: a model trained by the port
     loads into the JAX package.
-  * ``save_npz``/``load_npz`` carry such a tree in one .npz file.
+  * ``save_npz``/``load_npz`` carry such a tree in one compressed .npz
+    file, each leaf in its checkpoint dtype: bfloat16 leaves as their uint16
+    bit patterns, widened exactly to float32 at load, the rest as float32.
   * ``seeded_params`` makes a tree in the JAX layout from a numpy seed, with
     PyTorch's default initial scales, for runs without trained weights.
 """
@@ -278,32 +280,54 @@ def seeded_params(cfg: ModelConfig, seed: int = 0):
 
 
 _CFG_KEY = "__model_config__"
+_DTYPES_KEY = "__dtypes__"
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 values given as their uint16 bit patterns -> float32, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
 
 
 def save_npz(path, params, batch_stats, cfg: ModelConfig | None = None) -> Path:
-    """One .npz holding both trees (as float32) and, optionally, the config."""
+    """One compressed .npz holding both trees and, optionally, the config.
+    bfloat16 leaves keep their 16 bits (stored as uint16, their dtype
+    recorded); every other leaf is stored as float32."""
     import dataclasses
 
-    blobs = {}
+    blobs, dtypes = {}, {}
     for name, tree in (("params", params), ("batch_stats", batch_stats)):
         for key, leaf in _flatten(tree).items():
-            blobs["/".join((name,) + tuple(map(str, key)))] = np.asarray(leaf, dtype=np.float32)
+            blob = "/".join((name,) + tuple(map(str, key)))
+            arr = np.asarray(leaf)
+            if arr.dtype.name == "bfloat16":
+                blobs[blob], dtypes[blob] = arr.view(np.uint16), "bfloat16"
+            else:
+                blobs[blob] = arr.astype(np.float32)
     if cfg is not None:
         blobs[_CFG_KEY] = np.frombuffer(json.dumps(dataclasses.asdict(cfg)).encode(), np.uint8)
+    if dtypes:
+        blobs[_DTYPES_KEY] = np.frombuffer(json.dumps(dtypes).encode(), np.uint8)
     path = Path(path)
-    np.savez(path, **blobs)
+    np.savez_compressed(path, **blobs)
     return path
 
 
 def load_npz(path):
-    """-> (params, batch_stats, cfg or None) as written by ``save_npz``."""
+    """-> (params, batch_stats, cfg or None) as written by ``save_npz``, every
+    leaf float32 (bfloat16 leaves widened exactly)."""
     flat = {"params": {}, "batch_stats": {}}
     cfg = None
     with np.load(path) as z:
+        dtypes = json.loads(bytes(z[_DTYPES_KEY]).decode()) if _DTYPES_KEY in z.files else {}
         for key in z.files:
             if key == _CFG_KEY:
                 cfg = ModelConfig(**json.loads(bytes(z[key]).decode()))
                 continue
+            if key == _DTYPES_KEY:
+                continue
             name, *rest = key.split("/")
-            flat[name][tuple(int(r) if r.isdigit() else r for r in rest)] = z[key]
+            leaf = bf16_bits_to_f32(z[key]) if dtypes.get(key) == "bfloat16" else z[key]
+            flat[name][tuple(int(r) if r.isdigit() else r for r in rest)] = leaf
     return _unflatten(flat["params"]), _unflatten(flat["batch_stats"]), cfg

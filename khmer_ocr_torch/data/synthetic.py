@@ -3,7 +3,9 @@
 Dark blocks with holes on a white, lightly noisy background: enough structure
 for a randomly initialised model to give each line its own output, made the
 same way on every machine. ``synthetic_samples`` pairs them with label
-strings drawn from the vocabulary, for training runs without rendered text.
+strings drawn from the vocabulary, and ``synthetic_dataset`` makes a
+training dataset of them: training runs that need no fonts and no Pillow
+(the rendered lines of data/generator.py need both).
 """
 
 from __future__ import annotations
@@ -50,3 +52,12 @@ def synthetic_samples(chunk_counts, seed: int = 0, cfg: PreprocessConfig | None 
     rs = np.random.RandomState(seed + 1)
     texts = ["".join(rs.choice(chars, size=int(rs.randint(2, 14 * int(n) + 1)))) for n in chunk_counts]
     return list(zip(synthetic_lines(chunk_counts, seed, cfg), texts))
+
+
+def synthetic_dataset(n: int, seed: int, train_cfg=None, device_augment: bool = True):
+    """A LineDataset of ``n`` seeded lines of 1-16 chunks with label strings
+    drawn from the vocabulary (``synthetic_samples``)."""
+    from ..train.data import LineDataset
+
+    counts = np.random.RandomState(seed).randint(1, 17, size=n)
+    return LineDataset(synthetic_samples(counts.tolist(), seed), train_cfg=train_cfg, device_augment=device_augment)

@@ -17,16 +17,18 @@ _PREDICTOR_KEY: tuple | None = None
 
 
 def get_predictor(model_path=None, vocab_path=None, device=None) -> Predictor:
-    """The loaded predictor; ``model_path`` (an .npz of ``save_npz``) loads or
-    reloads it, ``None`` reuses whatever is loaded."""
+    """The loaded predictor; ``model_path`` (any kind that
+    ``predictor.load_weights`` reads) loads or reloads it, ``None`` reuses
+    whatever is loaded."""
     global _PREDICTOR, _PREDICTOR_KEY
     key = (str(model_path), str(vocab_path), str(device))
     with _LOCK:
         if _PREDICTOR is not None and (model_path is None or _PREDICTOR_KEY == key):
             return _PREDICTOR
         if model_path is None:
-            raise FileNotFoundError("No model weights loaded: pass model_path= (an .npz written by "
-                                    "khmer_ocr_torch.convert.from_jax.save_npz) or call set_predictor()")
+            raise FileNotFoundError("No model weights loaded: pass model_path= (.pth/.pt/.safetensors, an .npz "
+                                    "of convert.from_jax.save_npz, a checkpoint or weights index directory) or "
+                                    "call set_predictor()")
         _PREDICTOR = Predictor(model_path=model_path, vocab_path=vocab_path, device=device)
         _PREDICTOR_KEY = key
         return _PREDICTOR

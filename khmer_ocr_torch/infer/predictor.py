@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..config import DecodeConfig, ModelConfig, OCRConfig
-from ..convert.from_jax import load_npz, params_from_jax
+from ..convert.from_jax import load_npz, params_from_jax, params_to_jax
 from ..decode.beam import beam_decode
 from ..decode.greedy import greedy_decode
 from ..models.ocr_model import encode
@@ -48,6 +48,48 @@ def set_parity_mode() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def load_weights(model_path: str | Path, vocab_size: int | None = None):
+    """Weights of any kind the port reads -> (params, batch_stats, ModelConfig
+    or None) in the JAX package's layout, by the path's kind:
+
+      * ``.pth``/``.pt``/``.safetensors``: a reference checkpoint
+        (convert/torch_loader.py; ``vocab_size`` where the file has no
+        token embedding);
+      * ``.npz``: written by ``convert.from_jax.save_npz``;
+      * a directory with ``state.pt``: a checkpoint of the port's trainer
+        (train/checkpoint.py);
+      * a directory with ``index.json``: a weights index into an Orbax
+        checkpoint (convert/orbax_index.py).
+
+    A directory that holds an Orbax ``state/`` and no index raises: its
+    b-tree is read by tensorstore, which the port does not use."""
+    path = Path(model_path)
+    if path.suffix in (".pth", ".pt", ".safetensors"):
+        from ..convert.torch_loader import load_and_convert
+
+        return load_and_convert(path, vocab_size=vocab_size)
+    if path.suffix == ".npz":
+        return load_npz(path)
+    if path.is_dir():
+        if (path / "state.pt").exists():
+            from ..train.checkpoint import load_checkpoint
+
+            params, batch_stats, cfg = load_checkpoint(path)
+            return (*params_to_jax(params, batch_stats, cfg), cfg)
+        if (path / "index.json").exists():
+            from ..convert.orbax_index import load_index
+
+            return load_index(path)
+        if (path / "state").is_dir():
+            raise RuntimeError(f"{path} is an Orbax checkpoint (OCDBT, read through tensorstore), which the port "
+                               "does not read: load it through a weights index (convert/orbax_index.py) or convert "
+                               "it to an .npz with convert.from_jax.save_npz")
+        raise FileNotFoundError(f"{path} holds no weights the port reads (state.pt or index.json)")
+    if not path.exists():
+        raise FileNotFoundError(f"Model not found at {path}")
+    raise ValueError(f"{path}: unknown weights format (.pth, .pt, .safetensors, .npz or a checkpoint directory)")
+
+
 def _round_up(n: int, buckets: tuple[int, ...]) -> int:
     for b in buckets:
         if n <= b:
@@ -59,8 +101,8 @@ class Predictor:
     """Holds the weights on one device and decodes batches of line images.
 
     Weights: ``params``/``batch_stats`` in the JAX package's layout (nested
-    dicts of numpy arrays), or ``model_path`` to an .npz written by
-    ``convert.from_jax.save_npz``."""
+    dicts of numpy arrays), or ``model_path`` to any kind that
+    ``load_weights`` reads."""
 
     def __init__(self, params=None, batch_stats=None, model_cfg: ModelConfig | None = None, device=None,
                  config: OCRConfig | None = None, vocab_path: str | Path | None = None,
@@ -70,7 +112,7 @@ class Predictor:
         self.config = config or OCRConfig()
         self.tokenizer = Tokenizer(vocab_path)
         if model_path is not None:
-            params, batch_stats, saved_cfg = load_npz(model_path)
+            params, batch_stats, saved_cfg = load_weights(model_path, vocab_size=len(self.tokenizer))
             model_cfg = model_cfg or saved_cfg
         if params is None:
             raise ValueError("Provide params/batch_stats or model_path")

@@ -8,7 +8,9 @@ grouped by chunk bucket, in arrival order, into batches of at most
 afterwards, in ascending bucket order.
 
 PIL is imported only where it is needed: for file paths, PIL images, and
-arrays that are not already ``img_height`` px high.
+arrays that are not already ``img_height`` px high. The binarized variant
+(``PreprocessConfig.binarize``) blurs and thresholds each line in numpy
+before the resize.
 """
 
 from __future__ import annotations
@@ -45,6 +47,75 @@ def normalize(x: np.ndarray) -> np.ndarray:
     return (x - 0.5) / 0.5
 
 
+def _reflect101(n: int, pad: int) -> np.ndarray:
+    """Source index of each of ``n + 2 pad`` positions under OpenCV's default
+    border (BORDER_REFLECT_101: ... 2 1 | 0 1 2 ... n-1 | n-2 n-3 ...)."""
+    idx = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * n - 2
+    idx = np.abs(idx) % period
+    return np.where(idx < n, idx, period - idx)
+
+
+_GAUSS5 = (1, 4, 6, 4, 1)  # OpenCV's 5-tap kernel for sigma 0, in sixteenths
+_FLT_EPSILON = float(np.finfo(np.float32).eps)
+
+
+def gaussian_blur5(arr: np.ndarray) -> np.ndarray:
+    """OpenCV's ``GaussianBlur(arr, (5, 5), 0)`` of a uint8 (H, W) image, bit
+    for bit: the separable [1 4 6 4 1] / 16 kernel, the border reflected
+    (BORDER_REFLECT_101), and the 8-bit fixed-point result rounded half up,
+    which for this kernel is exact integer arithmetic."""
+    a = arr.astype(np.int32)
+    h, w = a.shape
+    rows = a[_reflect101(h, 2)]
+    v = sum(k * rows[i:i + h] for i, k in enumerate(_GAUSS5))
+    cols = v[:, _reflect101(w, 2)]
+    s = sum(k * cols[:, j:j + w] for j, k in enumerate(_GAUSS5))
+    return ((s + 128) >> 8).astype(np.uint8)
+
+
+def otsu_threshold(arr: np.ndarray) -> int:
+    """OpenCV's Otsu threshold of a uint8 image: the first level whose
+    between-class variance is the largest, in OpenCV's own float64
+    arithmetic and order (levels where either class holds under float32
+    epsilon of the pixels are skipped; a constant image gives 0)."""
+    hist = np.bincount(arr.ravel(), minlength=256).tolist()
+    scale = 1.0 / arr.size
+    mu = 0.0
+    for i, n in enumerate(hist):
+        mu += i * float(n)
+    mu *= scale
+    mu1 = q1 = max_sigma = 0.0
+    best = 0
+    for i, n in enumerate(hist):
+        p_i = n * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < _FLT_EPSILON or max(q1, q2) > 1.0 - _FLT_EPSILON:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, best = sigma, i
+    return best
+
+
+def binarize_image(arr: np.ndarray) -> np.ndarray:
+    """The binarized evaluation variant: a 5x5 Gaussian blur, then Otsu's
+    threshold (255 above it, 0 elsewhere), on a uint8 (H, W) line, before
+    the resize. Equals OpenCV's ``GaussianBlur(arr, (5, 5), 0)`` and
+    ``threshold(..., THRESH_BINARY + THRESH_OTSU)`` bit for bit; where two
+    levels tie exactly for the largest variance, OpenCV's own code keeps the
+    first, as here, while an OpenCV build that hands Otsu to Intel IPP may
+    pick another."""
+    blurred = gaussian_blur5(arr)
+    return np.where(blurred > otsu_threshold(blurred), 255, 0).astype(np.uint8)
+
+
 def bucket_for(n_chunks: int, buckets: tuple[int, ...]) -> int:
     for b in buckets:
         if n_chunks <= b:
@@ -78,15 +149,16 @@ class Preprocessor:
         self.runtime = runtime or RuntimeConfig()
 
     def load_line_u8(self, src) -> np.ndarray:
-        """One source -> uint8 (img_height, W). A 2-D array that is already
-        ``img_height`` px high and at least ``min_width`` wide is taken as it
-        is (the resize would be the identity); everything else goes through
-        PIL's grayscale conversion and bilinear resize."""
+        """One source -> uint8 (img_height, W), binarized first when
+        ``cfg.binarize`` is set. A 2-D array that is already ``img_height``
+        px high and at least ``min_width`` wide skips the resize (it would
+        be the identity); everything else goes through PIL's grayscale
+        conversion and bilinear resize."""
         cfg = self.cfg
         if isinstance(src, np.ndarray):
             arr = _to_uint8(src)
             if arr.ndim == 2 and arr.shape[0] == cfg.img_height and arr.shape[1] >= cfg.min_width:
-                return np.ascontiguousarray(arr)
+                return binarize_image(arr) if cfg.binarize else np.ascontiguousarray(arr)
         from PIL import Image
 
         if isinstance(src, (str, Path)):
@@ -100,6 +172,8 @@ class Preprocessor:
             image = Image.fromarray(_to_uint8(src)).convert("L")
         else:
             raise ValueError(f"Unsupported image source type: {type(src)!r}")
+        if cfg.binarize:
+            image = Image.fromarray(binarize_image(np.asarray(image, dtype=np.uint8)))
         new_width = max(cfg.min_width, int(cfg.img_height * (image.width / image.height)))
         image = image.resize((new_width, cfg.img_height), Image.Resampling.BILINEAR)
         return np.asarray(image, dtype=np.uint8)

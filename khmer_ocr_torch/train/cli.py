@@ -1,10 +1,12 @@
 """Train the recognizer with the PyTorch port:
 
-    python -m khmer_ocr_torch.train.cli --synthetic 256 --epochs 2 --batch-size 32
+    python -m khmer_ocr_torch.train.cli --synthetic 256 --epochs 2 --batch-size 32 [--font-dir DIR] [--corpus FILE]
     python -m khmer_ocr_torch.train.cli --data DIR --device cpu
 
 Runs on the CUDA card unless ``--device`` names another device; without a
-card it stops with an error.
+card it stops with an error, before any line is rendered. ``--synthetic N``
+renders N document-style lines with the font renderer (data/generator.py),
+which needs Pillow and, for its augmentation, OpenCV.
 """
 
 from __future__ import annotations
@@ -13,28 +15,15 @@ import argparse
 import dataclasses
 import logging
 
-SYNTHETIC_HELP = ("Train on N synthetic lines (data/synthetic.py: seeded blocks, not rendered text) with label "
-                  "strings drawn from the vocabulary by the seed; this stands in for the font renderer "
-                  "(data/generator.py), which the port does not have yet")
-
-
-def synthetic_dataset(n: int, seed: int, train_cfg, device_augment: bool = True):
-    """N seeded lines of 1-16 chunks with label strings drawn from the
-    vocabulary (data/synthetic.py::synthetic_samples)."""
-    import numpy as np
-
-    from ..data.synthetic import synthetic_samples
-    from .data import LineDataset
-
-    counts = np.random.RandomState(seed).randint(1, 17, size=n)
-    return LineDataset(synthetic_samples(counts.tolist(), seed), train_cfg=train_cfg, device_augment=device_augment)
-
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s", datefmt="%H:%M:%S")
     p = argparse.ArgumentParser(description="Train the Khmer OCR recognizer (PyTorch, CUDA)")
     p.add_argument("--data", type=str, help="images/ + labels/ folder-pair dataset root")
-    p.add_argument("--synthetic", type=int, default=0, metavar="N", help=SYNTHETIC_HELP)
+    p.add_argument("--synthetic", type=int, default=0, metavar="N",
+                   help="Train on N rendered document-style lines instead (data/generator.py)")
+    p.add_argument("--font-dir", type=str, default=None, help="Fonts for --synthetic (default: data/fonts)")
+    p.add_argument("--corpus", type=str, default=None, help="Word corpus for --synthetic (default: corpus_seed.txt)")
     p.add_argument("--backbone", type=str, default="se_vgg", choices=["se_vgg", "vgg", "resnet"])
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -46,8 +35,11 @@ def main(argv=None) -> int:
         p.error("Provide --data or --synthetic N")
 
     from ..config import OCRConfig
-    from .data import load_folder_dataset
+    from ..infer.predictor import resolve_device
+    from .data import LineDataset, load_folder_dataset
     from .loop import train
+
+    device = resolve_device(args.device)  # no card: stop before any rendering
 
     config = OCRConfig()
     config = dataclasses.replace(config, model=dataclasses.replace(
@@ -55,10 +47,13 @@ def main(argv=None) -> int:
     if args.batch_size:
         config = dataclasses.replace(config, train=dataclasses.replace(config.train, batch_size=args.batch_size))
     if args.synthetic:
-        dataset = synthetic_dataset(args.synthetic, config.train.seed, config.train)
+        from ..data.generator import DocumentTextGenerator
+
+        gen = DocumentTextGenerator(font_dir=args.font_dir, corpus_path=args.corpus)
+        dataset = LineDataset(gen.generate(args.synthetic, processes=4), train_cfg=config.train, device_augment=True)
     else:
         dataset = load_folder_dataset(args.data, train_cfg=config.train)
-    train(dataset, config, checkpoint_dir=args.checkpoint_dir, device=args.device, num_epochs=args.epochs,
+    train(dataset, config, checkpoint_dir=args.checkpoint_dir, device=device, num_epochs=args.epochs,
           resume_from=args.resume)
     return 0
 

@@ -1,11 +1,13 @@
 """The PyTorch port stands alone and never hides the device.
 
 * Importing ``khmer_ocr_torch`` (or every module of it) leaves JAX and the
-  JAX package out of ``sys.modules``; no file of the port, nor chip_smoke.py,
+  JAX package out of ``sys.modules``, and Pillow, OpenCV and safetensors
+  too (the card's machine may lack them; the modules that use them import
+  them inside their functions); no file of the port, nor chip_smoke.py,
   names the JAX package or imports JAX.
 * The entry points (the Predictor, ``recognize``, ``recognize_batch``, the
-  CLI, ``train()`` and the train CLI) need a CUDA card unless the caller asks
-  for the CPU: without one they raise. A kernel wrapper handed a tensor that is not on the
+  CLI, ``train()``, the train CLI and the evaluation CLI) need a CUDA card
+  unless the caller asks for the CPU: without one they raise. A kernel wrapper handed a tensor that is not on the
   CPU launches its kernel or raises; it never falls back to the plain version.
 
 The torch-side checks run in one subprocess (this file run as a script).
@@ -31,7 +33,7 @@ IMPORTS_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
 RAISES = ("predictor_without_device", "recognize_without_device", "recognize_batch_without_device",
           "cli_without_device", "lstm_wrapper_on_meta", "decode_step_wrapper_on_meta",
           "decode_loop_wrapper_on_meta", "smem_probe_wrapper_on_meta", "train_without_device",
-          "train_cli_without_device", "lstm_backward_wrapper_on_meta")
+          "train_cli_without_device", "lstm_backward_wrapper_on_meta", "evaluate_cli_without_device")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -45,6 +47,15 @@ for m in pkgutil.walk_packages(khmer_ocr_torch.__path__, "khmer_ocr_torch."):
                          ids=["package", "every_module", "train_loop"])
 def test_import_loads_neither_jax_nor_the_jax_package(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'khmer_ocr_tpu')))"
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.evaluate"],
+                         ids=["package", "every_module", "evaluate"])
+def test_import_loads_no_pillow_opencv_or_safetensors(code):
+    probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', " \
+                   "'safetensors')))"
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
@@ -94,6 +105,7 @@ def _port_main(tmp: Path) -> None:
     from khmer_ocr_torch.config import ModelConfig
     from khmer_ocr_torch.convert.from_jax import save_npz, seeded_params
     from khmer_ocr_torch.data.synthetic import synthetic_lines
+    from khmer_ocr_torch import evaluate
     from khmer_ocr_torch.config import DecodeConfig
     from khmer_ocr_torch.convert.from_jax import params_from_jax
     from khmer_ocr_torch.infer import cli
@@ -155,6 +167,8 @@ def _port_main(tmp: Path) -> None:
     attempt("train_without_device", lambda: train(dataset, ocfg, tmp / "ck", num_epochs=1))
     attempt("train_cli_without_device", lambda: train_cli.main(["--synthetic", "2", "--epochs", "1",
                                                                 "--checkpoint-dir", str(tmp / "cli")]))
+    attempt("evaluate_cli_without_device",
+            lambda: evaluate.main(["--data", str(tmp), "--model", str(tmp / "toy.npz")]))
     state = train(dataset, ocfg, tmp / "ck_cpu", device="cpu", num_epochs=1)
     res["train_steps"] = state.step
     res["train_launches"] = [lstm.launches, lstm_backward.launches]
