@@ -54,7 +54,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
      scored by the port's metrics (levenshtein_batch built with g++ there and
      held equal to the numpy DP on every pair), mean CER and exact match
      equal to the stored JAX values;
-  9. training at the flagship configuration (seeded weights): K1 with its
+  9. the page path (document): 4 A4 pages of the 64 rendered lines
+     (data/pages.py) written as PNG, the seeded SegFormer written as an HF
+     checkpoint directory, loaded by KhmerOCRPipeline(engine="custom") with
+     the flagship recognizer: the packed maps of one group of 4 against the
+     JAX package's (khmer_ocr_torch/assets/document_golden.*), class ids
+     equal off near-tied pixels and heatmaps within 1 step, the per-page
+     path against the batched one; the post-process on this machine's
+     OpenCV giving the golden elements from the golden maps and from the
+     pages' known layout; the known layout's 64 crops at beam 3 (K1, K2)
+     against the JAX strings, near-ties excepted, with CER; process_pages
+     on 4 and 16 pages with launch counts, its detection and recognition
+     spans and both measured apart, against the JAX page texts; the
+     searchable PDF's text layer through minipdf;
+ 10. training at the flagship configuration (seeded weights): K1 with its
      cell-state output and K1b (the LSTM's adjoint, by both its routes:
      clusters with W_hh in registers, one CTA per batch tile; the one
      geometry.k1b_route picks timed as the kernel) against their plain
@@ -67,8 +80,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (khmer_ocr_torch/assets/train_golden.json, 1e-4 relative); 50 steps
      on 4 samples overfit; two epochs of train() on 256 synthetic lines with
      device augmentation and dropout, checkpoints and a resume;
- 10. one JSON line with every kernel's numbers;
- 11. the last line: {"ok": true, "device": {...}}.
+ 11. one JSON line with every kernel's numbers;
+ 12. the last line: {"ok": true, "device": {...}}.
 
 Times come from CUDA events after warm-up (K2's device time from a
 replayed CUDA graph of launches). ``bound_ms`` is the larger of the
@@ -91,6 +104,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TOL = 1e-4
 NEAR_TIE = 1e-4
+DOC_RUNS, DOC_RUNS_16 = 5, 3  # process_pages runs on the known layout: 4 pages, 16 pages
 
 
 def fail(msg: str) -> None:
@@ -1219,6 +1233,318 @@ def phase_real(torch, smi):
         k: {kk: v for kk, v in d.items() if kk != "strings"} for k, d in out.items()})
 
 
+def phase_document(torch, smi):
+    """The page path: the SegFormer layout model (seeded weights, written as
+    an HF checkpoint directory), its post-process on the host, and the
+    trained flagship reading every detected line through K1 and K2, all
+    through KhmerOCRPipeline(engine="custom"); then the searchable PDF.
+    Held to the JAX package's golden (khmer_ocr_torch/assets/
+    document_golden.{npz,json}, tests/test_torch_document.py assets).
+
+    The seeded model finds one box a page, so process_pages is timed, in
+    several runs, on the pages' known layout: the forward, the copy and the
+    resize of the maps run as always, and each page's maps are then
+    replaced by its known layout, so that the pipeline reads the 64 real
+    lines."""
+    import itertools
+    import statistics
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from khmer_ocr_torch.convert.from_jax import seeded_segformer_state
+    from khmer_ocr_torch.data.generator import find_fonts
+    from khmer_ocr_torch.data.pages import compose_pages, layout_maps
+    from khmer_ocr_torch.detection.detector import unpack_maps
+    from khmer_ocr_torch.detection.postprocess import extract_layout_elements
+    from khmer_ocr_torch.detection.preprocess import prepare_image
+    from khmer_ocr_torch.detection.segformer import SegFormerConfig, predict_maps, save_hf_checkpoint
+    from khmer_ocr_torch.infer.api import get_predictor
+    from khmer_ocr_torch.metrics import score
+    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm
+    from khmer_ocr_torch.pipeline.document import run_layout_aware_pipeline
+    from khmer_ocr_torch.pipeline.engine import KhmerOCRPipeline
+    from khmer_ocr_torch.pipeline.minipdf import extract_pdf_text
+    from khmer_ocr_torch.pipeline.pdf import generate_searchable_pdf
+
+    assets = ROOT / "khmer_ocr_torch" / "assets"
+    weights = assets / "flagship"
+    meta = json.loads((assets / "document_golden.json").read_text())
+    recipe = meta["recipe"]
+    with np.load(assets / "document_golden.npz") as z:
+        gold_maps = z["maps"]
+        exempt = [z[f"exempt_{i}"] for i in range(gold_maps.shape[0])]
+    with np.load(assets / "real_lines.npz") as z:
+        lines = [z[f"line_{i}"] for i in range(len(z.files))]
+    pages, boxes = compose_pages(lines, meta["pages"])
+    images = [Image.fromarray(p).convert("RGB") for p in pages]
+    bw, bs, pad, tile = recipe["beam_width"], recipe["batch_size"], recipe["padding"], recipe["tile"]
+    out = {}
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        layout_dir = save_hf_checkpoint(tmp / "layout", seeded_segformer_state(SegFormerConfig(), recipe["seed"]))
+        paths = []
+        for i, page in enumerate(pages):
+            paths.append(tmp / f"page{i}.png")
+            Image.fromarray(page).save(paths[-1])
+        pipe = KhmerOCRPipeline(engine="custom", layout_model_dir=str(layout_dir), recognizer_model_path=str(weights))
+        det = pipe.detector
+        print(f"[document] KhmerOCRPipeline(engine='custom'): the layout model from {layout_dir.name}/ "
+              f"(config.json + pytorch_model.bin, seed {recipe['seed']}) on {det.device}; "
+              f"{len(pages)} pages of {pages[0].shape[1]}x{pages[0].shape[0]}, {len(lines)} lines")
+        if det.device.type != "cuda":
+            fail(f"document: the layout model is on {det.device}, not the card")
+
+        # 1. maps: one group of 4 at model resolution against the JAX package's
+        pixels = np.concatenate([prepare_image(img, tile)[1] for img in images])
+        packed = det.packed_maps(pixels)
+        x = torch.from_numpy(pixels).to(det.device)
+        with torch.inference_mode():
+            seg_ms = cuda_ms(torch, lambda: predict_maps(det.model, x, x.shape[2:], compact=True), reps=5)
+        n_exempt = n_exempt_differ = 0
+        for i, (got, want, ex) in enumerate(zip(packed, gold_maps, exempt)):
+            cls_differ = got[0] != want[0]
+            on_exempt = np.zeros(cls_differ.size, bool)
+            on_exempt[ex] = True
+            bad = int((cls_differ.ravel() & ~on_exempt).sum())
+            heat = int(np.abs(got[1].astype(int) - want[1].astype(int)).max())
+            n_exempt += ex.size
+            n_exempt_differ += int((cls_differ.ravel() & on_exempt).sum())
+            print(f"[document] page {i} maps at {tile}x{tile}: {bad} class ids differ off the {ex.size} near-tied "
+                  f"pixels ({int((cls_differ.ravel() & on_exempt).sum())} on them), heatmap within {heat}")
+            if bad or heat > 1:
+                fail(f"document: page {i}'s maps differ from the JAX package's ({bad} class ids off near-ties, "
+                     f"heatmap step {heat})")
+        print(f"[document] SegFormer forward + resize + softmax + pack, a group of {len(pages)} at {tile}x{tile}: "
+              f"{seg_ms:.3f} ms on {smi}")
+        for i, img in enumerate(images):
+            _, cm_pp, hm_pp = det.predict_maps(img)
+            cm_b, hm_b = unpack_maps(packed[i], img.size)
+            agree, dheat = float((cm_b == cm_pp).mean()), abs(float(hm_b.mean()) - float(hm_pp.mean()))
+            print(f"[document] page {i}: the per-page path (logits to a 256-rounded bucket, then the page size) "
+                  f"against the batched one: class agreement {agree:.4f}, mean heat {dheat:.4f} apart")
+            if cm_pp.shape != (img.height, img.width) or agree <= 0.95 or dheat >= 0.05:
+                fail(f"document: page {i}'s per-page maps diverge from the batched ones ({agree}, {dheat})")
+
+        # 2. the post-process on this machine: the golden maps -> the golden elements
+        import cv2
+
+        ipp = next((ln.strip() for ln in cv2.getBuildInformation().splitlines() if "IPP" in ln), "no IPP line")
+        known_maps = [layout_maps(p.shape, b) for p, b in zip(pages, boxes)]
+        post_ms = []
+        for name, maps_of in (("golden maps", lambda i: unpack_maps(gold_maps[i], images[i].size)),
+                              ("known layout", lambda i: known_maps[i])):
+            want_all = meta["elements"] if name == "golden maps" else meta["known_elements"]
+            for i, img in enumerate(images):
+                t0 = time.perf_counter()
+                _, el = extract_layout_elements(img, *maps_of(i))
+                post_ms.append((time.perf_counter() - t0) * 1e3)
+                got = [[[int(v) for v in box], int(cls)] for box, cls in el]
+                if got != want_all[i]:
+                    print(f"[document] page {i}, {name}: elements {got} against the JAX package's {want_all[i]}; "
+                          f"OpenCV {cv2.__version__}, {ipp}")
+                    fail(f"document: the post-process gives other elements on page {i} ({name})")
+        print(f"[document] post-process (OpenCV {cv2.__version__}, {ipp}): the golden elements on all "
+              f"{len(images)} pages from the golden maps and from the known layout; {np.mean(post_ms):.1f} ms a page "
+              f"on the host")
+
+        # 3. recognition of the known layout's crops through K1 and K2
+        page_known = [pipe._crops_from_elements(img, [(box, cls) for box, cls in el], pad)
+                      for img, el in zip(images, meta["known_elements"])]
+        crops = [cr for cs in page_known for cr in cs]
+        pred = get_predictor(str(weights), None)  # the Predictor the pipeline recognises with
+        if pred.device.type != "cuda":
+            fail(f"document: the recognizer is on {pred.device}, not the card")
+        check_memory(torch, pred, crops, bs, "known layout", tag="document")
+        pred.predict_batch(crops, beam_width=bw, batch_size=bs)  # warm-up
+        rows, c, wall = counted_run(torch, pred, crops, bw, bs, None)
+        got = [strip(r) for r in rows]
+        strings = [pred.tokenizer.decode(r) for r in got]
+        differ = [i for i, (a, b) in enumerate(zip(strings, meta["crop_strings"])) if a != b]
+        n_diff = check_tokens(torch, pred, [crops[i] for i in differ],
+                              [pred.tokenizer.encode(meta["crop_strings"][i]) for i in differ],
+                              [got[i] for i in differ], f"known-layout crops {differ}", tag="document")
+        names = [f"crop_{i}" for i in range(len(crops))]
+        res = score(names, meta["crop_texts"], strings)
+        print(f"[document] known layout: {len(crops)} crops, beam {bw}, in {wall * 1e3:.1f} ms "
+              f"({len(crops) / wall:.1f} lines/s) on {smi}; launches K1 {c['k1']}, K2 {c['k2']}, K3 {c['k3']}; "
+              f"{len(crops) - n_diff}/{len(crops)} strings equal to the JAX package's; mean CER {res.mean_cer:.6f}, "
+              f"exact match {res.exact_match_accuracy:.4f} (JAX: {meta['crop_mean_cer']:.6f}, "
+              f"{meta['crop_exact_match']:.4f})")
+        if c["k1"] == 0 or c["k2"] == 0:
+            fail(f"document: K1 or K2 never launched on the known layout's crops ({c})")
+        out["crops"] = dict(n=len(crops), ms=wall * 1e3, mean_cer=res.mean_cer, exact_match=res.exact_match_accuracy,
+                            n_diff=n_diff, **c)
+
+        # 4. the page path end to end: process_pages on the PNG pages
+        spans = []
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                spans.append((name, t, time.perf_counter()))
+                return r
+            return run
+
+        def counted_pages(page_paths, **kw):
+            """process_pages with every count set to 0 just before it and read
+            just after, its detection groups and recognition flushes kept as
+            spans: (texts, wall s, counts, spans in ms from the call)."""
+            spans.clear()
+            pipe._detect_crops_batch = timed("detect", type(pipe)._detect_crops_batch.__get__(pipe))
+            pipe._recognize = timed("recognise", type(pipe)._recognize.__get__(pipe))
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                got = pipe.process_pages(page_paths, beam_width=bw, batch_size=bs, pages_per_batch=recipe["group"],
+                                         **kw)
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t0
+            finally:
+                del pipe._detect_crops_batch, pipe._recognize
+            return (got, took, {"k1": lstm.launches, "k2": decode_step.launches, "k3": decode_loop.launches},
+                    [(name, (a - t0) * 1e3, (b - t0) * 1e3) for name, a, b in spans])
+
+        def show(spans_ms) -> str:
+            return ", ".join(f"{name} {a:.0f}-{b:.0f}" for name, a, b in spans_ms)
+
+        def apart(crops_of_pages, page_paths):
+            """Detection of ``page_paths`` and recognition of ``crops_of_pages``,
+            each timed on its own: (detection s, recognition s)."""
+            t0 = time.perf_counter()
+            pipe._detect_crops_batch([str(p) for p in page_paths], pad)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred.predict_batch(crops_of_pages, beam_width=bw, batch_size=bs)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
+
+        # 4a. with the seeded layout model: the texts against the JAX package's
+        pipe.process_pages(paths, beam_width=bw, batch_size=bs, pages_per_batch=recipe["group"])  # warm-up
+        texts, wall, counts, spans_ms = counted_pages(paths)
+        seeded_crops = [cr for cs in pipe._detect_crops_batch([str(p) for p in paths], pad) for cr in cs]
+        check_memory(torch, pred, seeded_crops, bs, "the seeded layout's crops", tag="document")
+        print(f"[document] process_pages, the seeded layout model: {len(paths)} pages, {len(seeded_crops)} lines, "
+              f"{wall * 1e3:.1f} ms; launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}; spans (ms from "
+              f"the call): {show(spans_ms)}")
+        if counts["k1"] == 0 or counts["k2"] == 0:
+            fail(f"document: process_pages launched K1 {counts['k1']}, K2 {counts['k2']} times")
+        for i, (got_t, want_t) in enumerate(zip(texts, meta["page_texts"])):
+            if got_t == want_t:
+                continue
+            _, el = det.run(str(paths[i]))
+            print(f"[document] page {i}: text {got_t!r} against the JAX package's {want_t!r}; its boxes here "
+                  f"{[[[int(v) for v in box], int(cls)] for box, cls in el]}, the JAX package's {meta['elements'][i]}")
+            if not n_exempt_differ:
+                fail(f"document: page {i}'s text differs from the JAX package's, and no near-tied pixel took the "
+                     "other class")
+        print(f"[document] page texts equal to the JAX package's: {texts == meta['page_texts']} "
+              f"({n_exempt} near-tied pixels, {n_exempt_differ} of them took the other class)")
+        out["seeded"] = dict(lines=len(seeded_crops), ms=wall * 1e3, **counts)
+
+        # 4b. on the known layout, timed in several runs: the 64 real lines
+        offsets = np.cumsum([0] + [len(cs) for cs in page_known])
+        want_texts = ["\n".join(strings[a:b]) for a, b in zip(offsets, offsets[1:])]
+        batched, order = det.predict_maps_batch, itertools.cycle(range(len(pages)))  # the worker goes page by page
+        det.predict_maps_batch = lambda srcs, group=4: [(im, *known_maps[next(order)])
+                                                        for im, _, _ in batched(srcs, group=group)]
+        try:
+            pipe.process_pages(paths, beam_width=bw, batch_size=bs, pages_per_batch=recipe["group"])  # warm-up
+            runs = []
+            for r in range(DOC_RUNS):
+                texts_k, wall_k, counts_k, spans_ms = counted_pages(paths)
+                det_s, rec_s = apart(crops, paths)
+                if texts_k != want_texts:
+                    fail(f"document: run {r} of process_pages on the known layout reads {texts_k}, not the crops' "
+                         f"strings {want_texts}")
+                if counts_k["k1"] == 0 or counts_k["k2"] == 0:
+                    fail(f"document: process_pages on the known layout launched K1 {counts_k['k1']}, K2 "
+                         f"{counts_k['k2']} times")
+                runs.append(dict(ms=wall_k * 1e3, detect_ms=det_s * 1e3, recognise_ms=rec_s * 1e3, **counts_k))
+                print(f"[document] process_pages, known layout, run {r}: {len(paths)} pages, {len(crops)} lines in "
+                      f"{wall_k * 1e3:.1f} ms ({len(paths) / wall_k:.2f} pages/s); apart: detection {det_s * 1e3:.1f} "
+                      f"ms + recognition {rec_s * 1e3:.1f} ms = {(det_s + rec_s) * 1e3:.1f} ms (wall / sum "
+                      f"{wall_k / (det_s + rec_s):.3f}); launches K1 {counts_k['k1']}, K2 {counts_k['k2']}, K3 "
+                      f"{counts_k['k3']}; spans: {show(spans_ms)}")
+            if any({k: u[k] for k in ("k1", "k2", "k3")} != {k: runs[0][k] for k in ("k1", "k2", "k3")}
+                   for u in runs):
+                fail(f"document: the runs launched the kernels unequally: {runs}")
+            # the detection of the 4 pages step by step, as _detect_crops_batch does it
+            steps, stamps = ("read PNG", "prepare", "forward + copy", "maps to page size", "post-process",
+                             "crops"), [time.perf_counter()]
+            imgs = [Image.open(p).convert("RGB") for p in paths]
+            stamps.append(time.perf_counter())
+            px = np.concatenate([prepare_image(im, tile)[1] for im in imgs])
+            stamps.append(time.perf_counter())
+            packed4 = det.packed_maps(px)
+            stamps.append(time.perf_counter())
+            [unpack_maps(m, im.size) for m, im in zip(packed4, imgs)]
+            stamps.append(time.perf_counter())
+            els = [extract_layout_elements(im, *m, det.cfg)[1] for im, m in zip(imgs, known_maps)]
+            stamps.append(time.perf_counter())
+            [pipe._crops_from_elements(im, el, pad) for im, el in zip(imgs, els)]
+            stamps.append(time.perf_counter())
+            split = {k: (b - a) * 1e3 for k, a, b in zip(steps, stamps, stamps[1:])}
+            print(f"[document] detection of the {len(paths)} pages on the known layout, step by step (ms): "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+            # four times the pages, a flush after each group's lines: recognition beside the next group's detection
+            many, runs_many = paths * 4, []
+            for r in range(DOC_RUNS_16):
+                texts_m, wall_m, counts_m, spans_ms = counted_pages(many, flush_lines=len(crops))
+                if texts_m != want_texts * 4:
+                    fail(f"document: run {r} of process_pages on 16 pages reads otherwise than on 4")
+                runs_many.append(dict(ms=wall_m * 1e3, **counts_m))
+                print(f"[document] process_pages, known layout, {len(many)} pages, flush_lines {len(crops)}, run {r}: "
+                      f"{wall_m * 1e3:.1f} ms ({len(many) / wall_m:.2f} pages/s); launches K1 {counts_m['k1']}, K2 "
+                      f"{counts_m['k2']}; spans: {show(spans_ms)}")
+        finally:
+            del det.predict_maps_batch
+
+        def med(rs, key):
+            return statistics.median(u[key] for u in rs)
+
+        sums = [u["detect_ms"] + u["recognise_ms"] for u in runs]
+        print(f"[document] process_pages on the known layout, medians of {DOC_RUNS} runs on {smi}: {len(paths)} "
+              f"pages {med(runs, 'ms'):.1f} ms ({len(paths) / med(runs, 'ms') * 1e3:.2f} pages/s; runs "
+              f"{min(u['ms'] for u in runs):.1f}-{max(u['ms'] for u in runs):.1f}), detection apart "
+              f"{med(runs, 'detect_ms'):.1f} ms, recognition apart {med(runs, 'recognise_ms'):.1f} ms, their sum "
+              f"{statistics.median(sums):.1f}; {len(many)} pages {med(runs_many, 'ms'):.1f} ms "
+              f"({len(many) / med(runs_many, 'ms') * 1e3:.2f} pages/s; runs {min(u['ms'] for u in runs_many):.1f}-"
+              f"{max(u['ms'] for u in runs_many):.1f}) against {4 * statistics.median(sums):.1f} ms for 4 x "
+              f"(detection + recognition) apart")
+        out["pages"] = dict(n=len(paths), lines=len(crops), ms=med(runs, "ms"),
+                            pages_per_s=len(paths) / med(runs, "ms") * 1e3, detect_ms=med(runs, "detect_ms"),
+                            recognise_ms=med(runs, "recognise_ms"), runs_ms=[u["ms"] for u in runs],
+                            sums_ms=sums, detect_split_ms=split, **{k: runs[0][k] for k in ("k1", "k2", "k3")})
+        out["pages_16"] = dict(ms=med(runs_many, "ms"), pages_per_s=len(many) / med(runs_many, "ms") * 1e3,
+                               runs_ms=[u["ms"] for u in runs_many],
+                               **{k: runs_many[0][k] for k in ("k1", "k2", "k3")})
+
+        # the searchable PDF: the layout-aware pipeline's lines, then the known layout's strings of page 0
+        font = next(f for f in find_fonts(None) if f.name == "NotoSansKhmer-Regular.ttf")
+        results = run_layout_aware_pipeline(str(paths[0]), model_path=str(weights), beam_width=bw, engine="custom",
+                                            layout_model_dir=str(layout_dir))
+        known = [{"text": t, "bbox": box} for t, (box, _) in  # page 0's crops come first, top to bottom
+                 zip(strings, sorted(meta["known_elements"][0], key=lambda e: e[0][1]))]
+        pdf_bytes = []
+        for name, items in (("layout-aware pipeline", results), ("known layout", known)):
+            pdf = generate_searchable_pdf(paths[0], items, tmp / "page0.pdf", font)
+            data = pdf.read_bytes()
+            layer, want_layer = extract_pdf_text(pdf), [r["text"] for r in items if r["text"]]
+            print(f"[document] searchable PDF of page 0, {name} ({font.name}): {len(data)} B, {len(items)} lines, "
+                  f"the text layer {'equal to' if layer == want_layer else 'NOT equal to'} the recognised strings: "
+                  f"{layer[:3]}{' ...' if len(layer) > 3 else ''}")
+            if not data.startswith(b"%PDF-") or layer != want_layer:
+                fail(f"document: the PDF's text layer {layer} is not the recognised {want_layer}")
+            pdf_bytes.append(len(data))
+        out.update(segformer_ms=seg_ms, post_ms=float(np.mean(post_ms)), pdf_bytes=pdf_bytes,
+                   exempt=n_exempt, exempt_differ=n_exempt_differ)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "khmer_ocr_torch" / "__init__.py").exists():
         print("khmer_ocr_torch not found next to chip_smoke.py: run it from a checkout of the repository",
@@ -1247,6 +1573,9 @@ def main() -> int:
     e2e = phase_e2e(torch, gpu_name, smi)
     real = phase_real(torch, smi)
     print(f"[real] {json.dumps(real)}")
+    t0 = time.perf_counter()
+    document = phase_document(torch, smi)
+    print(f"[document] {json.dumps(document)}; the phase took {time.perf_counter() - t0:.1f} s")
     tr = phase_train(torch, smi)
 
     main_len = min(k for k in e2e if isinstance(k, int))
@@ -1264,7 +1593,7 @@ def main() -> int:
         # launches: the beam-3 request (inference); the train step launches it once too (train_launches)
         entry("lstm_recurrence", "lstm_recurrence.cu", tpu_kernel_site("ops/pallas/lstm.py", "lstm_recurrence"),
               e2e[main_len]["k1"], max(k1_err, k1_cell_err), k1_main, k1_rows + k1_cell_rows,
-              train_launches=tr["k1_launches"]),
+              train_launches=tr["k1_launches"], document_launches=document["pages"]["k1"]),
         # launches: one train step's (the training path)
         entry("lstm_adjoint", "lstm_backward.cu", tpu_kernel_site("ops/pallas/lstm.py", "_vjp_bwd"),
               tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"],
@@ -1272,7 +1601,7 @@ def main() -> int:
               tile_ms=k1b_main["tile_ms"]),
         entry("decoder_layer_step", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
-              k2_err, k2_main, k2_rows),
+              k2_err, k2_main, k2_rows, document_launches=document["pages"]["k2"]),
         # launches: the KHMER_OCR_MEGA_DECODE=1 request, K3's path
         entry("fused_beam_decode", "decode_loop.cu", tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"),
               e2e["mega"]["k3"], k3_err, k3_main, k3_rows, host_loop_ms=k3_main["host_loop_ms"],

@@ -6,13 +6,21 @@ length-aware BiLSTM (CUDA kernel K1 on the card) and KV-cached beam decoding
 (CUDA kernel K2 for every decoder layer step). Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
 
+Whole pages go through ``KhmerOCRPipeline`` (pipeline/engine.py): the
+SegFormer layout model on the card, its classical-CV post-process on the
+host, then the recognizer on every detected line; ``pipeline/pdf.py`` writes
+a searchable PDF, and ``KhmerOCRInference`` (infer/standalone.py) is the
+reference's class API.
+
 Importing the package loads neither torch nor the heavy modules; they load
-with the first use of ``recognize``, ``recognize_batch`` or ``Predictor``.
+with the first use of ``recognize``, ``recognize_batch`` or a lazy export
+(``Predictor``, ``KhmerOCRInference``, ``KhmerOCRPipeline``, ``Evaluator``,
+``calculate_cer``, ``levenshtein``).
 """
 
 __version__ = "0.1.0"
 
-from .config import DecodeConfig, ModelConfig, OCRConfig, PreprocessConfig, RuntimeConfig
+from .config import DecodeConfig, ModelConfig, OCRConfig, PreprocessConfig, RuntimeConfig, TrainConfig
 from .tokenizer import Tokenizer
 
 
@@ -38,8 +46,21 @@ def __getattr__(name):
         from .infer.predictor import Predictor
 
         return Predictor
+    if name == "KhmerOCRInference":
+        from .infer.standalone import KhmerOCRInference
+
+        return KhmerOCRInference
+    if name == "KhmerOCRPipeline":
+        from .pipeline.engine import KhmerOCRPipeline
+
+        return KhmerOCRPipeline
+    if name in ("Evaluator", "calculate_cer", "levenshtein"):
+        from . import metrics
+
+        return getattr(metrics, name)
     raise AttributeError(f"module 'khmer_ocr_torch' has no attribute {name!r}")
 
 
-__all__ = ["DecodeConfig", "ModelConfig", "OCRConfig", "Predictor", "PreprocessConfig", "RuntimeConfig",
-           "Tokenizer", "recognize", "recognize_batch"]
+__all__ = ["DecodeConfig", "Evaluator", "KhmerOCRInference", "KhmerOCRPipeline", "ModelConfig", "OCRConfig",
+           "Predictor", "PreprocessConfig", "RuntimeConfig", "Tokenizer", "TrainConfig", "calculate_cer",
+           "levenshtein", "recognize", "recognize_batch"]

@@ -117,3 +117,14 @@ class OCRConfig:
     decode: DecodeConfig = field(default_factory=DecodeConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+
+def backbone_for_path(model_path: str) -> str:
+    """The backbone named by a weights file's name, as the reference picks it
+    (recognize_text.py:39-44): "vgg" or "resnet" in the name, else se_vgg."""
+    name = str(model_path).lower()
+    if "vgg" in name:
+        return "vgg"
+    if "resnet" in name:
+        return "resnet"
+    return "se_vgg"

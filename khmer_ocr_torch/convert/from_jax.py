@@ -331,3 +331,122 @@ def load_npz(path):
             leaf = bf16_bits_to_f32(z[key]) if dtypes.get(key) == "bfloat16" else z[key]
             flat[name][tuple(int(r) if r.isdigit() else r for r in rest)] = leaf
     return _unflatten(flat["params"]), _unflatten(flat["batch_stats"]), cfg
+
+
+# ---------------------------------------------------------------------------
+# The SegFormer layout model
+# ---------------------------------------------------------------------------
+
+
+def _segformer_layout(cfg) -> list[tuple[str, tuple, tuple, str]]:
+    """[(HF key, JAX tree path, HF shape, kind)] of every SegFormer leaf, in
+    HF's state-dict order. kind: "conv" (JAX HWIO, HF OIHW; the depthwise
+    (3,3,1,C) too), "dense" (JAX (in, out), HF (out, in)), "bias", "ln_scale",
+    "ln_bias", "bn_scale", "bn_bias", "bn_mean", "bn_var"."""
+    out = []
+
+    def dense(key, path, cin, cout):
+        out.extend([(f"{key}.weight", path + ("w",), (cout, cin), "dense"),
+                    (f"{key}.bias", path + ("b",), (cout,), "bias")])
+
+    def ln(key, path, c):
+        out.extend([(f"{key}.weight", path + ("scale",), (c,), "ln_scale"),
+                    (f"{key}.bias", path + ("bias",), (c,), "ln_bias")])
+
+    def conv(key, path, cin, cout, k, bias=True):
+        out.append((f"{key}.weight", path + ("w",), (cout, cin, k, k), "conv"))
+        if bias:
+            out.append((f"{key}.bias", path + ("b",), (cout,), "bias"))
+
+    enc = "segformer.encoder"
+    for i, c in enumerate(cfg.hidden_sizes):
+        st = ("stages", i)
+        cin = 3 if i == 0 else cfg.hidden_sizes[i - 1]
+        conv(f"{enc}.patch_embeddings.{i}.proj", st + ("patch",), cin, c, cfg.patch_sizes[i])
+        ln(f"{enc}.patch_embeddings.{i}.layer_norm", st + ("patch_ln",), c)
+        hid = c * cfg.mlp_ratio
+        for j in range(cfg.depths[i]):
+            pre, bp = f"{enc}.block.{i}.{j}", st + ("blocks", j)
+            ln(f"{pre}.layer_norm_1", bp + ("ln1",), c)
+            for name, short in (("query", "q"), ("key", "k"), ("value", "v")):
+                dense(f"{pre}.attention.self.{name}", bp + ("attn", short), c, c)
+            if cfg.sr_ratios[i] > 1:
+                conv(f"{pre}.attention.self.sr", bp + ("attn", "sr"), c, c, cfg.sr_ratios[i])
+                ln(f"{pre}.attention.self.layer_norm", bp + ("attn", "sr_ln"), c)
+            dense(f"{pre}.attention.output.dense", bp + ("attn", "o"), c, c)
+            ln(f"{pre}.layer_norm_2", bp + ("ln2",), c)
+            dense(f"{pre}.mlp.dense1", bp + ("mlp", "dense1"), c, hid)
+            out.extend([(f"{pre}.mlp.dwconv.dwconv.weight", bp + ("mlp", "dw_w"), (hid, 1, 3, 3), "conv"),
+                        (f"{pre}.mlp.dwconv.dwconv.bias", bp + ("mlp", "dw_b"), (hid,), "bias")])
+            dense(f"{pre}.mlp.dense2", bp + ("mlp", "dense2"), hid, c)
+        ln(f"{enc}.layer_norm.{i}", st + ("final_ln",), c)
+    dh = cfg.decoder_hidden
+    for i, c in enumerate(cfg.hidden_sizes):
+        dense(f"decode_head.linear_c.{i}.proj", ("head", "linear_c", i), c, dh)
+    conv("decode_head.linear_fuse", ("head", "fuse"), dh * len(cfg.hidden_sizes), dh, 1, bias=False)
+    for name, short, kind in (("weight", "scale", "bn_scale"), ("bias", "bias", "bn_bias"),
+                              ("running_mean", "mean", "bn_mean"), ("running_var", "var", "bn_var")):
+        out.append((f"decode_head.batch_norm.{name}", ("head", "bn", short), (dh,), kind))
+    conv("decode_head.classifier", ("head", "classifier"), dh, cfg.num_labels, 1)
+    return out
+
+
+def segformer_params_from_jax(tree, cfg=None, device="cpu") -> dict:
+    """The JAX package's SegFormer tree (nested dicts/lists of numpy arrays:
+    HWIO convs, (in, out) dense layers, the depthwise ``dw_w`` as (3,3,1,C),
+    BatchNorm ``scale``/``bias``/``mean``/``var``; what its
+    ``convert_hf_state_dict`` gives and its ``detection/train.py`` trains)
+    -> the port's SegFormer state: {key: float32 tensor on ``device``} with
+    ``detection/segformer.py``'s keys. Every leaf is consumed exactly once."""
+    import torch
+
+    from ..detection.segformer import SegFormerConfig
+
+    flat = _flatten(tree)
+    state = {}
+    for key, path, shape, kind in _segformer_layout(cfg or SegFormerConfig()):
+        if path not in flat:
+            raise ValueError(f"SegFormer leaf {'/'.join(map(str, path))} is missing")
+        arr = np.asarray(flat.pop(path), np.float32)
+        arr = arr.transpose(3, 2, 0, 1) if kind == "conv" else arr.T if kind == "dense" else arr
+        if arr.shape != shape:
+            raise ValueError(f"SegFormer leaf {'/'.join(map(str, path))} gives {arr.shape}, expected {shape}")
+        state[key.removeprefix("segformer.")] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if flat:
+        raise ValueError(f"SegFormer leaves the port does not use: {sorted(map(str, flat))[:8]}")
+    return state
+
+
+def seeded_segformer_state(cfg=None, seed: int = 0) -> dict:
+    """An HF-keyed SegFormer state dict ({key: numpy array}, the
+    ``segformer.`` prefix and ``num_batches_tracked`` included) from a numpy
+    seed, drawn leaf by leaf in HF's order from ``RandomState(seed)``:
+
+      * conv and dense weights N(0, 1/fan_in), fan_in = input channels per
+        group x kernel area (not HF's N(0, 0.02^2), whose logits sit so close
+        to zero that rounding decides the argmax);
+      * biases, LayerNorm and BatchNorm shifts N(0, 0.1^2);
+      * LayerNorm and BatchNorm scales 1 + N(0, 0.1^2);
+      * BatchNorm running mean 0.2 N(0, 1), running variance U(0, 1) + 0.5
+        (the HF oracle's statistics).
+
+    So the logits spread O(1) and near-tied pixels are rare."""
+    from ..detection.segformer import SegFormerConfig
+
+    rs = np.random.RandomState(seed)
+    state = {}
+    for key, _, shape, kind in _segformer_layout(cfg or SegFormerConfig()):
+        if kind in ("conv", "dense"):
+            fan_in = int(np.prod(shape[1:]))
+            arr = rs.standard_normal(shape) / np.sqrt(fan_in)
+        elif kind in ("ln_scale", "bn_scale"):
+            arr = 1.0 + 0.1 * rs.standard_normal(shape)
+        elif kind == "bn_mean":
+            arr = 0.2 * rs.standard_normal(shape)
+        elif kind == "bn_var":
+            arr = rs.uniform(0.0, 1.0, shape) + 0.5
+        else:
+            arr = 0.1 * rs.standard_normal(shape)
+        state[key] = arr.astype(np.float32)
+    state["decode_head.batch_norm.num_batches_tracked"] = np.zeros((), np.int64)
+    return state

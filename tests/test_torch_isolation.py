@@ -6,8 +6,11 @@
   them inside their functions); no file of the port, nor chip_smoke.py,
   names the JAX package or imports JAX.
 * The entry points (the Predictor, ``recognize``, ``recognize_batch``, the
-  CLI, ``train()``, the train CLI and the evaluation CLI) need a CUDA card
-  unless the caller asks for the CPU: without one they raise. A kernel wrapper handed a tensor that is not on the
+  CLI, ``train()``, the train CLI, the evaluation CLI, and the page path's
+  ``LayoutInference``, ``KhmerOCRPipeline(engine="custom")``,
+  ``run_layout_aware_pipeline``, ``KhmerOCRInference`` and the layout,
+  pipeline and PDF CLIs) need a CUDA card unless the caller asks for the
+  CPU: without one they raise. A kernel wrapper handed a tensor that is not on the
   CPU launches its kernel or raises; it never falls back to the plain version.
 
 The torch-side checks run in one subprocess (this file run as a script).
@@ -33,8 +36,14 @@ IMPORTS_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
 RAISES = ("predictor_without_device", "recognize_without_device", "recognize_batch_without_device",
           "cli_without_device", "lstm_wrapper_on_meta", "decode_step_wrapper_on_meta",
           "decode_loop_wrapper_on_meta", "smem_probe_wrapper_on_meta", "train_without_device",
-          "train_cli_without_device", "lstm_backward_wrapper_on_meta", "evaluate_cli_without_device")
+          "train_cli_without_device", "lstm_backward_wrapper_on_meta", "evaluate_cli_without_device",
+          "layout_inference_without_device", "pipeline_custom_without_device",
+          "layout_aware_pipeline_without_device", "standalone_without_device", "layout_cli_without_device",
+          "pipeline_cli_without_device", "pdf_cli_without_device")
 
+_PAGE_PATH = ("import khmer_ocr_torch.detection.detector, khmer_ocr_torch.detection.cli, "
+              "khmer_ocr_torch.detection.surya, khmer_ocr_torch.pipeline.engine, khmer_ocr_torch.pipeline.document, "
+              "khmer_ocr_torch.pipeline.pdf, khmer_ocr_torch.infer.standalone")
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import khmer_ocr_torch
@@ -43,19 +52,30 @@ for m in pkgutil.walk_packages(khmer_ocr_torch.__path__, "khmer_ocr_torch."):
 """
 
 
-@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.train.loop"],
-                         ids=["package", "every_module", "train_loop"])
+@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.train.loop", _PAGE_PATH],
+                         ids=["package", "every_module", "train_loop", "page_path"])
 def test_import_loads_neither_jax_nor_the_jax_package(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'khmer_ocr_tpu')))"
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
-@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.evaluate"],
-                         ids=["package", "every_module", "evaluate"])
+@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.evaluate", _PAGE_PATH],
+                         ids=["package", "every_module", "evaluate", "page_path"])
 def test_import_loads_no_pillow_opencv_or_safetensors(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', " \
                    "'safetensors')))"
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_lazy_exports_load_neither_torch_nor_opencv():
+    """The package's light exports (``Evaluator``, ``calculate_cer``,
+    ``levenshtein``, ``TrainConfig``) come without torch or OpenCV."""
+    probe = ("import sys, khmer_ocr_torch as k\n"
+             "assert k.Evaluator and k.calculate_cer('ab', 'ab') == 0.0 and k.levenshtein('ab', 'b') == 1\n"
+             "assert k.TrainConfig().batch_size == 32\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'cv2', 'jax')))")
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
@@ -86,6 +106,13 @@ def test_cpu_on_request_runs_and_kernels_stay_unlaunched(no_card):
     assert no_card["cpu_strings_mega"] == no_card["cpu_strings"]
     assert no_card["mega_batches"] > 0
     assert no_card["launches"] == [0, 0, 0, 0, 0]
+
+
+def test_page_path_on_cpu_on_request(no_card):
+    """KhmerOCRPipeline(engine="custom", device="cpu").process_pages reads a
+    page through the plain versions: a string a page, no kernel launched."""
+    assert len(no_card["page_texts"]) == 1 and isinstance(no_card["page_texts"][0], str)
+    assert no_card["page_launches"] == [0, 0, 0]
 
 
 def test_train_on_cpu_on_request(no_card):
@@ -169,6 +196,40 @@ def _port_main(tmp: Path) -> None:
                                                                 "--checkpoint-dir", str(tmp / "cli")]))
     attempt("evaluate_cli_without_device",
             lambda: evaluate.main(["--data", str(tmp), "--model", str(tmp / "toy.npz")]))
+    from PIL import Image
+
+    from khmer_ocr_torch.convert.from_jax import seeded_segformer_state
+    from khmer_ocr_torch.detection import cli as layout_cli
+    from khmer_ocr_torch.detection.detector import LayoutInference
+    from khmer_ocr_torch.detection.segformer import save_hf_checkpoint
+    from khmer_ocr_torch.infer.standalone import KhmerOCRInference
+    from khmer_ocr_torch.pipeline import engine as pipeline_cli
+    from khmer_ocr_torch.pipeline import pdf as pdf_cli
+    from khmer_ocr_torch.pipeline.document import run_layout_aware_pipeline
+    from khmer_ocr_torch.pipeline.engine import KhmerOCRPipeline
+
+    layout, toy, page = str(save_hf_checkpoint(tmp / "layout", seeded_segformer_state(None, 0))), str(tmp / "toy.npz"), \
+        str(tmp / "page.png")
+    Image.fromarray(lines[1]).save(page)
+    attempt("layout_inference_without_device", lambda: LayoutInference(layout))
+    attempt("pipeline_custom_without_device",
+            lambda: KhmerOCRPipeline(engine="custom", layout_model_dir=layout, recognizer_model_path=toy))
+    attempt("layout_aware_pipeline_without_device",
+            lambda: run_layout_aware_pipeline(page, model_path=toy, engine="custom", layout_model_dir=layout))
+    attempt("standalone_without_device", lambda: KhmerOCRInference(toy))
+    attempt("layout_cli_without_device",
+            lambda: layout_cli.main(["--image", page, "--model", layout, "--output", str(tmp / "det")]))
+    attempt("pipeline_cli_without_device",
+            lambda: pipeline_cli.main(["--image", page, "--engine", "custom", "--layout-model", layout,
+                                       "--recognizer", toy, "--output", str(tmp / "out.txt")]))
+    attempt("pdf_cli_without_device",
+            lambda: pdf_cli.main(["--image", page, "--model", toy, "--font", str(tmp / "none.ttf"), "--engine",
+                                  "custom", "--layout-model", layout, "--outdir", str(tmp / "pdf")]))
+    set_predictor(None)
+    cpu_pipe = KhmerOCRPipeline(engine="custom", layout_model_dir=layout, recognizer_model_path=toy, device="cpu")
+    res["page_texts"] = cpu_pipe.process_pages([page])
+    res["page_launches"] = [lstm.launches, decode_step.launches, decode_loop.launches]
+    set_predictor(None)
     state = train(dataset, ocfg, tmp / "ck_cpu", device="cpu", num_epochs=1)
     res["train_steps"] = state.step
     res["train_launches"] = [lstm.launches, lstm_backward.launches]
