@@ -80,8 +80,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (khmer_ocr_torch/assets/train_golden.json, 1e-4 relative); 50 steps
      on 4 samples overfit; two epochs of train() on 256 synthetic lines with
      device augmentation and dropout, checkpoints and a resume;
- 11. one JSON line with every kernel's numbers;
- 12. the last line: {"ok": true, "device": {...}}.
+ 11. layout training (detection/train.py) at MiT-b0 widths: three steps
+     against the JAX package's golden losses
+     (khmer_ocr_torch/assets/layout_train_golden.json, 1e-4 relative), the
+     step at batch 4 x 512 px timed (pages/s, peak memory, idle share), 30
+     steps of finetune() from random init with the loss falling below 0.7 of
+     its first, the .npz round trip in the JAX package's layout;
+ 12. host augmentation (train/augment.py): one epoch of 16 rendered lines
+     against the JAX package's digest (khmer_ocr_torch/assets/
+     host_augment_golden.json), then two epochs of train() on the 64 lines
+     augmented on the host (device augmentation off), the batch on the card
+     equal to the host's build, one K1 and one K1b launch a step;
+ 13. data parallelism (parallel/mesh.py): a group of one rank over NCCL
+     gives the step without a group bit for bit; two ranks sharing the card
+     over gloo, each running K1 and K1b on its half of 8 lines, match the
+     one-process step; the two ranks serve 18 rendered lines at beam 3 with
+     the flagship's weights, tokens equal to one process's (each rank's K1
+     and K2 launches counted);
+ 14. one JSON line with every kernel's numbers;
+ 15. the last line: {"ok": true, "device": {...}}.
 
 Times come from CUDA events after warm-up (K2's device time from a
 replayed CUDA graph of launches). ``bound_ms`` is the larger of the
@@ -942,6 +959,457 @@ def phase_train(torch, smi):
     return launches
 
 
+def device_profile(fn):
+    """Run ``fn`` under torch.profiler -> (the card's busy ms; the wall ms of
+    ``fn`` to its last synchronise; [(kernel, ms)] of the five longest
+    kernels by total time), or None when the profiler recorded no device
+    activity."""
+    from khmer_ocr_torch.profiling import busy_ms, device_events
+
+    dev, wall = device_events(fn)
+    if not dev:
+        return None
+    by_name: dict = {}
+    for e in dev:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + float(e["dur"]) / 1e3
+    return busy_ms(dev), wall, sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+
+
+def phase_layout_train(torch, smi):
+    """SegFormer layout training (detection/train.py) at MiT-b0 widths, 12
+    labels, on the card: (1) three steps from seeded_segformer_state(0) on
+    two 128 px synthetic pages at lr 6e-5 against the JAX package's golden
+    losses (khmer_ocr_torch/assets/layout_train_golden.json, 1e-4 relative);
+    (2) the step at batch 4 x 512 px timed with CUDA events after warm-up,
+    pages/s, peak memory and the device's idle share under torch.profiler;
+    (3) 30 steps of finetune() from random init on synthetic pages, the loss
+    below 0.7 of its first; (4) the .npz round trip in the JAX package's
+    layout. No kernel of the port lies on this path: every launch count
+    stays 0."""
+    import tempfile
+
+    import numpy as np
+
+    from khmer_ocr_torch.convert.from_jax import seeded_segformer_state
+    from khmer_ocr_torch.detection.segformer import SegFormer, SegFormerConfig, build_model
+    from khmer_ocr_torch.detection.train import (finetune, flatten_params, make_train_step, segformer_init,
+                                                 synth_layout_batch, unflatten_params)
+
+    cfg = SegFormerConfig()
+    golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "layout_train_golden.json").read_text())
+    reset_counts()
+    model = build_model(seeded_segformer_state(cfg, golden["seed"]), cfg, "cuda")
+    step = make_train_step(model, golden["lr"])
+    x, y = (torch.from_numpy(a).cuda() for a in synth_layout_batch(np.random.RandomState(golden["pages_seed"]),
+                                                                    golden["batch"], golden["size"]))
+    losses = [step(x, y).item() for _ in range(golden["steps"])]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses, golden["losses"]))
+    print(f"[layout_train] golden: losses {[round(v, 6) for v in losses]} vs {[round(v, 6) for v in golden['losses']]}"
+          f" (worst rel {err:.1e})")
+    if not err <= 1e-4:
+        fail(f"layout train golden: worst relative difference {err:.2e} > 1e-4")
+    del model, step
+
+    # the step at batch 4 x 512 px
+    model = segformer_init(0, cfg, "cuda")
+    step = make_train_step(model, 6e-5)
+    x, y = (torch.from_numpy(a).cuda() for a in synth_layout_batch(np.random.RandomState(1), 4, 512))
+    for _ in range(2):
+        step(x, y)
+    torch.cuda.reset_peak_memory_stats()
+    n = 8
+    ms = cuda_ms(torch, lambda: step(x, y), n, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = device_profile(lambda: [step(x, y) for _ in range(3)])
+    if prof is None:
+        fail("layout train: the profiler recorded no device activity")
+    busy, wall, top = prof
+    idle = 1 - busy / 3 / ms  # the card's busy time a step against the step timed without the profiler
+    loss = step(x, y).item()
+    print(f"[layout_train] train step, batch 4 x 3 x 512 x 512: {ms:.2f} ms a step ({4e3 / ms:.1f} pages/s), peak "
+          f"memory {peak:.2f} GiB; the card busy {busy / 3:.2f} ms a step, {idle:.1%} idle against the step's "
+          f"{ms:.2f} ms ({1 - busy / wall:.1%} within the profiled window of {wall / 3:.1f} ms a step, the "
+          f"profiler's host cost included); loss {loss:.4f} on {smi}")
+    print(f"[layout_train] the longest kernels over the 3 steps (ms): {[(k, round(v, 2)) for k, v in top]}")
+    if not np.isfinite(loss):
+        fail(f"layout train step: loss {loss}")
+    del model, step, x, y
+
+    # 30 steps of finetune() from random init on synthetic pages
+    t0 = time.perf_counter()
+    model, losses = finetune(steps=30, batch_size=4, image_size=512, lr=3e-4, seed=0, log_every=100)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t0
+    print(f"[layout_train] finetune(): 30 steps at batch 4 x 512 px, lr 3e-4, from random init: loss {losses[0]:.4f}"
+          f" -> {losses[-1]:.4f} ({losses[-1] / losses[0]:.1%} of the first) in {ft_s:.1f} s (the host's synthetic "
+          f"pages included)")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]):
+        fail(f"layout finetune: {losses[0]:.4f} -> {losses[-1]:.4f}, not below 70%")
+
+    # the .npz round trip in the JAX package's layout
+    flat = flatten_params(model)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(Path(tmp) / "layout.npz", **flat)
+        with np.load(Path(tmp) / "layout.npz") as z:
+            back = SegFormer(cfg)
+            back.load_state_dict(unflatten_params(dict(z), cfg))
+    again = flatten_params(back)
+    same = sorted(again) == sorted(flat) and all(np.array_equal(again[k], v) for k, v in flat.items())
+    print(f"[layout_train] .npz round trip: {len(flat)} arrays equal: {same}")
+    if not same:
+        fail("layout train: the .npz round trip changed the weights")
+    c = train_counts()
+    if c["k1"] or c["k1b"] or c["other"]:
+        fail(f"layout train: a kernel was launched ({c}); none lies on this path")
+    return dict(step_ms=ms, pages_per_s=4e3 / ms, peak_gib=peak, busy_ms=busy / 3, idle_share=idle, golden_err=err,
+                finetune_first=losses[0], finetune_last=losses[-1], finetune_s=ft_s)
+
+
+def epoch_digest(batches) -> str:
+    """sha256 over every batch's chunks, chunk counts and labels, in order
+    (tests/test_torch_host_augment.py::epoch_digest)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for b in batches:
+        for a in (b.chunks, b.chunk_counts, b.labels):
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def real_samples(n: int) -> list:
+    import numpy as np
+
+    assets = ROOT / "khmer_ocr_torch" / "assets"
+    texts = json.loads((assets / "real_lines.json").read_text())["texts"]
+    with np.load(assets / "real_lines.npz") as z:
+        return [(z[f"line_{i}"], texts[i]) for i in range(n)]
+
+
+def phase_host_augment(torch, smi):
+    """The host Augmenter (train/augment.py, OpenCV) on this machine: one
+    epoch of LineDataset(augment=True) on the first 16 rendered lines
+    against the JAX package's digest (khmer_ocr_torch/assets/
+    host_augment_golden.json); then train() for two epochs on the 64
+    rendered lines with --host-augment semantics (augmented on the host,
+    device augmentation off), every batch that reached the card byte-equal
+    to the same epoch built again on the host, the loss finite, K1 and K1b
+    launched once a step."""
+    import cv2
+    import numpy as np
+
+    from khmer_ocr_torch.config import OCRConfig, TrainConfig
+    from khmer_ocr_torch.train import loop
+    from khmer_ocr_torch.train.data import LineDataset
+
+    golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "host_augment_golden.json").read_text())
+    ds = LineDataset(real_samples(golden["lines"]), augment=True)
+    digest = epoch_digest(ds.epoch_batches(golden["batch"], np.random.default_rng(golden["seed"])))
+    print(f"[host_augment] one epoch of {golden['lines']} lines, batch {golden['batch']}, OpenCV {cv2.__version__}: "
+          f"digest equal to the JAX package's: {digest == golden['digest']}")
+    if digest != golden["digest"]:
+        fail(f"host augment: the epoch's digest {digest} differs from the JAX package's {golden['digest']}")
+
+    ocfg = OCRConfig(train=TrainConfig(batch_size=16, checkpoint_every_epochs=100))
+    dataset = LineDataset(real_samples(64), train_cfg=ocfg.train, augment=True)
+    seen, real_step = [], loop.make_train_step
+
+    def recording_step(*args, **kw):
+        step = real_step(*args, **kw)
+        seen.append(args[2])  # the device step's augmentation probability
+
+        def run(state, batch, generator, lr):
+            if len(seen) == 1:
+                seen.append({k: v.cpu().numpy() for k, v in batch.items()})
+            return step(state, batch, generator, lr)
+
+        return run
+
+    loop.make_train_step = recording_step
+    try:
+        with tempfile_dir() as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            state = loop.train(dataset, ocfg, tmp / "run", num_epochs=2, log_every=1000, eye_test_every=10 ** 6,
+                               metrics_path=tmp / "metrics.jsonl")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            epochs = [json.loads(line) for line in (tmp / "metrics.jsonl").read_text().splitlines()]
+    finally:
+        loop.make_train_step = real_step
+    c = train_counts()
+    first = seen[1]
+    host = next(dataset.epoch_batches(16, np.random.default_rng(loop._epoch_seed(ocfg.train.seed, 1)),
+                                      sample_size=64, max_label_len=ocfg.model.decode_max_len + 1))
+    same = all(np.array_equal(first[k], v) for k, v in host.as_dict().items())
+    print(f"[host_augment] train(): 2 epochs of 64 lines, batch 16, host augment p {ocfg.train.augment_prob} "
+          f"(device step's augmentation probability {seen[0]}): {state.step} steps in {wall:.1f} s, mean loss "
+          f"{[round(e['mean_loss'], 4) for e in epochs]}; launches K1 {c['k1']}, K1b {c['k1b']}; the first batch on "
+          f"the card byte-equal to the host's build: {same}")
+    if seen[0] != 0.0 or "lines" in first:
+        fail(f"host augment: the device step augments too (probability {seen[0]}, layout {sorted(first)})")
+    if not same:
+        fail("host augment: the batch on the card differs from the host's build of it")
+    if not all(np.isfinite(e["mean_loss"]) for e in epochs):
+        fail(f"host augment: loss {epochs}")
+    if (c["k1"], c["k1b"], c["other"]) != (state.step, state.step, 0):
+        fail(f"host augment: launches {c} for {state.step} steps")
+    return dict(steps=state.step, k1=c["k1"], k1b=c["k1b"], seconds=wall)
+
+
+@contextlib.contextmanager
+def tempfile_dir():
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        yield Path(tmp)
+
+
+PAR_WORLD = 2
+PAR_LR = 1e-4
+PAR_WARMUP, PAR_TIMED = 3, 20
+SERVE_LINES = 18
+
+
+def step_with_grads(torch, step, state, batch, lr):
+    """One train step -> (state, {"loss", "grads"}): the gradients Adam
+    received (summed over the group when the step has one)."""
+    seen, real_grad = [], torch.autograd.grad
+
+    def spy(*args, **kw):
+        seen.append(real_grad(*args, **kw))
+        return seen[-1]
+
+    torch.autograd.grad = spy
+    try:
+        state, m = step(state, batch, torch.Generator(device="cuda").manual_seed(0), lr)
+    finally:
+        torch.autograd.grad = real_grad
+    return state, {"loss": m["loss"], "grads": list(seen[0])}
+
+
+def parallel_batch() -> dict:
+    """8 synthetic lines of 4 chunks with labels of their own lengths, the
+    "lines" layout (the shards hold different numbers of targets)."""
+    return bucket_batch(4, 8, 64, 3).as_dict()
+
+
+def flat_state(state, extra: dict) -> dict:
+    import numpy as np
+
+    from khmer_ocr_torch.train.step import tree_leaves
+
+    copy = lambda t: t.detach().cpu().numpy().copy()  # noqa: E731
+    out = {f"param{i}": copy(t) for i, t in enumerate(tree_leaves(state.params))}
+    out.update({f"stat{i}": copy(t) for i, t in enumerate(tree_leaves(state.batch_stats))})
+    out.update({f"grad{i}": copy(g) for i, g in enumerate(extra["grads"])})
+    out["loss"] = np.asarray(extra["loss"].item())
+    return out
+
+
+def parallel_rank(rank: int, world: int, tmp: Path) -> int:
+    """A rank of phase_parallel's group (gloo, CUDA tensors, the one card):
+    (ii) one train step at the flagship widths on its rows of
+    parallel_batch(), (iii) its part of the data-parallel beam-3 request on
+    the rendered lines. Writes rank{rank}.npz / .json to ``tmp``."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from khmer_ocr_torch.config import ModelConfig
+    from khmer_ocr_torch.infer.predictor import Predictor, set_parity_mode
+    from khmer_ocr_torch.parallel.mesh import data_shard
+    from khmer_ocr_torch.train.step import batch_to_device, init_train_state, make_train_step
+
+    set_parity_mode()
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank, world_size=world)
+    group = dist.group.WORLD
+    cfg = ModelConfig(dropout=0.0)
+    batch = batch_to_device(data_shard(parallel_batch(), rank, world), "cuda")
+    step = make_train_step(cfg, group=group)
+    meta = {"targets": int((batch["labels"][:, 1:] != cfg.pad_idx).sum())}
+    reset_counts()
+    state, extra = step_with_grads(torch, step, init_train_state(cfg, 0, "cuda"), batch, PAR_LR)
+    torch.cuda.synchronize()
+    meta["train_counts"] = train_counts()
+    np.savez(tmp / f"rank{rank}.npz", **flat_state(state, extra))
+    walls = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, torch.Generator(device="cuda").manual_seed(0), PAR_LR)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    meta["step_ms"] = sorted(walls)[1] * 1e3
+    del state, extra
+
+    lines = [line for line, _ in real_samples(SERVE_LINES)]
+    pred = Predictor(model_path=ROOT / "khmer_ocr_torch" / "assets" / "flagship", process_group=group)
+    pred.predict_batch_tokens(lines, beam_width=3, batch_size=8, max_len=64)  # warm-up
+    dist.barrier()
+    rows, counts, wall = counted_run(torch, pred, lines, 3, 8, 64)
+    meta.update(serve_tokens=[strip(r) for r in rows], serve_counts=counts, serve_ms=wall * 1e3,
+                serve_strings=[pred.tokenizer.decode(r) for r in rows])
+    (tmp / f"rank{rank}.json").write_text(json.dumps(meta))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(torch, smi):
+    """Data parallelism over torch.distributed on the one card: (i) a group
+    of one rank over NCCL: one train step at the flagship widths equals the
+    step without a group bit for bit (loss, gradients, params, statistics);
+    (ii) two ranks sharing the card over gloo on CUDA tensors, each running
+    K1 and K1b on its half of 8 lines: the loss within 1e-5 relative, the
+    summed gradients within 1e-4 x max(1, |ref|), the statistics within
+    1e-5 and the params within 1e-6 of the one-process step on the whole
+    batch, but for values where either gradient lies within the measured
+    gradient difference of 0 (Adam's first step turns such a gradient into
+    about +-lr: see tests/test_torch_parallel.py), every rank's params
+    equal; (iii) the two
+    ranks serving the first 18 rendered lines at beam 3 with the flagship's
+    weights: every rank's tokens equal to one process's, with each rank's
+    K1 and K2 launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from khmer_ocr_torch.config import ModelConfig
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.train.step import batch_to_device, init_train_state, make_train_step
+
+    cfg = ModelConfig(dropout=0.0)
+    # bit-equal steps need the same sums: cuDNN's convolutions, the token embedding's gradient (an
+    # accumulating index_put, whose default kernel adds in a run-dependent order)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    batch = batch_to_device(parallel_batch(), "cuda")
+    with tempfile_dir() as tmp:
+        # (i) NCCL, a group of one rank
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "nccl"), 1), rank=0, world_size=1)
+        runs = {}
+        for name, group in (("alone", None), ("group", dist.group.WORLD)):
+            step = make_train_step(cfg, group=group)
+            state, extra = step_with_grads(torch, step, init_train_state(cfg, 0, "cuda"), batch, PAR_LR)
+            runs[name] = (flat_state(state, extra), step, state)
+            del extra
+        # the step's wall with and without the group: PAR_TIMED steps between CUDA events after PAR_WARMUP, in the
+        # order alone, group, group, alone
+        walls = {"alone": [], "group": []}
+        for name in ("alone", "group", "group", "alone"):
+            _, step, state = runs[name]
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            walls[name].append(cuda_ms(torch, lambda: step(state, batch, gen, PAR_LR), PAR_TIMED, PAR_WARMUP))
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        a, b = runs["alone"][0], runs["group"][0]
+        a_ms, b_ms = (sum(walls[k]) / 2 for k in ("alone", "group"))
+        del runs
+        equal = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        print(f"[parallel] (i) NCCL, one rank: the step under the group equal to the step without one bit for bit "
+              f"({len(a)} arrays: loss, gradients, params, statistics): {equal}; a step {b_ms:.2f} ms under the "
+              f"group ({' and '.join(f'{v:.2f}' for v in walls['group'])}), {a_ms:.2f} ms without "
+              f"({' and '.join(f'{v:.2f}' for v in walls['alone'])}): means of {PAR_TIMED} steps between CUDA events "
+              f"after {PAR_WARMUP} of warm-up, twice each in the order alone, group, group, alone, batch 8 x 4 "
+              f"chunks, deterministic algorithms on; {b_ms / a_ms - 1:+.1%} under the group, on {smi}")
+        if not equal:
+            bad = [k for k in a if not np.array_equal(a[k], b[k])]
+            fail(f"parallel (i): {len(bad)} arrays differ under a group of one ({bad[:6]})")
+        ref = a
+
+        # the one-process references for (iii)
+        lines = [line for line, _ in real_samples(SERVE_LINES)]
+        pred = Predictor(model_path=ROOT / "khmer_ocr_torch" / "assets" / "flagship")
+        pred.predict_batch_tokens(lines, beam_width=3, batch_size=8, max_len=64)
+        one_rows, one_counts, one_wall = counted_run(torch, pred, lines, 3, 8, 64)
+        one_tokens = [strip(r) for r in one_rows]
+        del pred
+        torch.cuda.empty_cache()
+
+        # (ii) and (iii): two ranks sharing the card over gloo
+        logs = [tmp / f"rank{r}.log" for r in range(PAR_WORLD)]
+        t0 = time.perf_counter()
+        procs = []
+        for r, log in enumerate(logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(r),
+                                               str(PAR_WORLD), str(tmp)], stdout=fh, stderr=subprocess.STDOUT,
+                                              cwd=ROOT))
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        ranks_s = time.perf_counter() - t0
+        if rcs != [0] * PAR_WORLD:
+            for log in logs:
+                print(log.read_text()[-3000:])
+            fail(f"parallel: the ranks exited {rcs}")
+        outs = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(PAR_WORLD)]
+        metas = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+    torch.backends.cudnn.deterministic = False
+
+    loss_rel = abs(float(outs[0]["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+    grad_err = max(np.abs(outs[0][k] - ref[k]).max() / max(1.0, np.abs(ref[k]).max()) for k in ref if
+                   k.startswith("grad"))
+    stat_err = max(np.abs(outs[0][k] - ref[k]).max() for k in ref if k.startswith("stat"))
+    # Adam's first step moves a value by lr g / (|g| + eps), about lr sign(g): where either gradient lies within the
+    # measured gradient difference of 0 (every sign flip among them), the two steps may part by up to 2 lr. Those
+    # values are exempt from the 1e-6 on params; every other value must meet it.
+    grad_diff = max(np.abs(outs[0][f"grad{k[5:]}"] - ref[f"grad{k[5:]}"]).max() for k in ref if k.startswith("param"))
+    past = exempt = unexplained = 0
+    param_err = 0.0
+    for k in (k for k in ref if k.startswith("param")):
+        g, g_ref = outs[0][f"grad{k[5:]}"], ref[f"grad{k[5:]}"]
+        off = np.abs(outs[0][k] - ref[k]) > 1e-6
+        free = np.minimum(np.abs(g), np.abs(g_ref)) <= grad_diff
+        past += int(off.sum())
+        exempt += int((off & free).sum())
+        unexplained += int((off & ~free).sum())
+        kept = np.abs(outs[0][k] - ref[k])[~free]
+        param_err = max(param_err, float(kept.max()) if kept.size else 0.0)
+    n_params = sum(ref[k].size for k in ref if k.startswith("param"))
+    replicated = all(np.array_equal(o[k], outs[0][k]) for o in outs[1:] for k in outs[0] if k.startswith("param"))
+    counts = [m["train_counts"] for m in metas]
+    print(f"[parallel] (ii) {PAR_WORLD} ranks over gloo on CUDA tensors, one card, targets {[m['targets'] for m in metas]}:"
+          f" loss {float(outs[0]['loss']):.6f} vs {float(ref['loss']):.6f} one-process (rel {loss_rel:.1e}); "
+          f"summed gradients worst |diff| / max(1, |ref|) {grad_err:.1e} (|diff| {grad_diff:.1e}); statistics "
+          f"{stat_err:.1e}; params: {past} of {n_params} values past 1e-6, {exempt} of them exempt (a gradient "
+          f"within {grad_diff:.1e} of 0), {unexplained} not; the rest within {param_err:.1e}; params equal on every "
+          f"rank: {replicated}; launches per rank K1 {[c['k1'] for c in counts]}, K1b {[c['k1b'] for c in counts]}; "
+          f"a step {[round(m['step_ms'], 1) for m in metas]} ms per rank (two processes time-sharing one card over "
+          f"loopback gloo: a numerics check, not a scaling figure) against {a_ms:.2f} ms for one process on the "
+          f"whole batch, on {smi}")
+    if not (loss_rel <= 1e-5 and grad_err <= TOL and stat_err <= 1e-5 and unexplained == 0
+            and replicated):
+        fail(f"parallel (ii): loss rel {loss_rel:.2e}, gradients {grad_err:.2e}, statistics {stat_err:.2e}, "
+             f"{unexplained} params past 1e-6 with both gradients off 0, replicated {replicated}")
+    if any((c["k1"], c["k1b"], c["other"]) != (1, 1, 0) for c in counts):
+        fail(f"parallel (ii): launches {counts}, expected one K1 and one K1b on every rank")
+
+    same = [m["serve_tokens"] == one_tokens for m in metas]
+    sc = [m["serve_counts"] for m in metas]
+    print(f"[parallel] (iii) {PAR_WORLD} ranks serving {SERVE_LINES} lines, beam 3, max_len 64, batch 8: tokens equal "
+          f"to one process's on every rank: {same}; launches per rank K1 {[c['k1'] for c in sc]}, K2 "
+          f"{[c['k2'] for c in sc]} (one process: K1 {one_counts['k1']}, K2 {one_counts['k2']}); "
+          f"{[round(m['serve_ms'], 1) for m in metas]} ms per rank, {one_wall * 1e3:.1f} ms for one process; the "
+          f"ranks' processes {ranks_s:.1f} s in all")
+    if not all(same):
+        fail("parallel (iii): a rank's tokens differ from one process's")
+    if any(c["k1"] == 0 or c["k2"] == 0 or c["k3"] or c["k4"] for c in sc):
+        fail(f"parallel (iii): launches {sc}")
+    return dict(nccl_one_rank_equal=equal, loss_rel=loss_rel, grad_err=float(grad_err), param_err=param_err,
+                params_past=past, params_exempt=exempt,
+                k1_train=[c["k1"] for c in counts], k1b_train=[c["k1b"] for c in counts],
+                k1_serve=[c["k1"] for c in sc], k2_serve=[c["k2"] for c in sc],
+                step_ms=[m["step_ms"] for m in metas], one_step_ms=a_ms, group_one_step_ms=b_ms)
+
+
 def strip(row) -> list[int]:
     out = [int(v) for v in row]
     while out and out[-1] == 0:
@@ -1546,6 +2014,8 @@ def phase_document(torch, smi):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase_parallel's group, started by the phase
+        return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if not (ROOT / "khmer_ocr_torch" / "__init__.py").exists():
         print("khmer_ocr_torch not found next to chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
@@ -1577,6 +2047,15 @@ def main() -> int:
     document = phase_document(torch, smi)
     print(f"[document] {json.dumps(document)}; the phase took {time.perf_counter() - t0:.1f} s")
     tr = phase_train(torch, smi)
+    t0 = time.perf_counter()
+    layout_train = phase_layout_train(torch, smi)
+    print(f"[layout_train] {json.dumps(layout_train)}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host_augment = phase_host_augment(torch, smi)
+    print(f"[host_augment] {json.dumps(host_augment)}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parallel = phase_parallel(torch, smi)
+    print(f"[parallel] {json.dumps(parallel)}; the phase took {time.perf_counter() - t0:.1f} s")
 
     main_len = min(k for k in e2e if isinstance(k, int))
     k1_main = next(r for r in k1_rows if r["shape"] == "2x B=8 T=1024")
@@ -1593,15 +2072,19 @@ def main() -> int:
         # launches: the beam-3 request (inference); the train step launches it once too (train_launches)
         entry("lstm_recurrence", "lstm_recurrence.cu", tpu_kernel_site("ops/pallas/lstm.py", "lstm_recurrence"),
               e2e[main_len]["k1"], max(k1_err, k1_cell_err), k1_main, k1_rows + k1_cell_rows,
-              train_launches=tr["k1_launches"], document_launches=document["pages"]["k1"]),
+              train_launches=tr["k1_launches"], document_launches=document["pages"]["k1"],
+              host_augment_train_launches=host_augment["k1"], parallel_train_launches=parallel["k1_train"],
+              parallel_serve_launches=parallel["k1_serve"]),
         # launches: one train step's (the training path)
         entry("lstm_adjoint", "lstm_backward.cu", tpu_kernel_site("ops/pallas/lstm.py", "_vjp_bwd"),
               tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"],
+              host_augment_train_launches=host_augment["k1b"], parallel_train_launches=parallel["k1b_train"],
               kernel_route=f"{k1b_main['route']}, {k1b_main['rows']} rows", cluster_ms=k1b_main["cluster_ms"],
               tile_ms=k1b_main["tile_ms"]),
         entry("decoder_layer_step", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
-              k2_err, k2_main, k2_rows, document_launches=document["pages"]["k2"]),
+              k2_err, k2_main, k2_rows, document_launches=document["pages"]["k2"],
+              parallel_serve_launches=parallel["k2_serve"]),
         # launches: the KHMER_OCR_MEGA_DECODE=1 request, K3's path
         entry("fused_beam_decode", "decode_loop.cu", tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"),
               e2e["mega"]["k3"], k3_err, k3_main, k3_rows, host_loop_ms=k3_main["host_loop_ms"],

@@ -34,7 +34,6 @@ import argparse
 import json
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -59,37 +58,20 @@ def family(name: str) -> str:
     return "other"
 
 
-def union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for start, stop in sorted(intervals):
-        if stop <= end:
-            continue
-        total += stop - max(start, end)
-        end = stop
-    return total
-
-
-def device_profile(torch, fn, trace: Path | None):
+def device_profile(fn, trace: Path | None):
     """Run ``fn`` under torch.profiler: (device busy ms, {family: ms,
     launches}, kernels), or None when no device activity was recorded."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = trace or Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(Path(path).read_text())["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    from khmer_ocr_torch.profiling import busy_ms, device_events
+
+    dev, _ = device_events(fn, trace)
     if not dev:
         return None
-    busy_ms = union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev) / 1e3
     by_family: dict[str, dict] = {}
     for e in dev:
         f = by_family.setdefault(family(e["name"]), {"ms": 0.0, "launches": 0})
         f["ms"] += float(e["dur"]) / 1e3
         f["launches"] += 1
-    return busy_ms, by_family, sum(1 for e in dev if e.get("cat") == "kernel")
+    return busy_ms(dev), by_family, sum(1 for e in dev if e.get("cat") == "kernel")
 
 
 def train_profile(torch, smi: str, trace: Path | None) -> int:
@@ -126,7 +108,7 @@ def train_profile(torch, smi: str, trace: Path | None) -> int:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / n
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        prof = device_profile(torch, lambda: steps(3), trace)
+        prof = device_profile(lambda: steps(3), trace)
         if prof is None:
             print("the profiler recorded no device activity: device time not measured", file=sys.stderr)
             return 1
@@ -217,7 +199,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     steps0 = pred.decode_steps
-    prof = device_profile(torch, lambda: pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs,
+    prof = device_profile(lambda: pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs,
                                                                    max_len=max_len), args.trace)
     steps = pred.decode_steps - steps0
     if prof is None:

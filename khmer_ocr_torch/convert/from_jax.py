@@ -417,6 +417,29 @@ def segformer_params_from_jax(tree, cfg=None, device="cpu") -> dict:
     return state
 
 
+def segformer_params_to_jax(state: dict, cfg=None) -> dict:
+    """The inverse of ``segformer_params_from_jax``: a SegFormer state (the
+    port's keys, HF's ``segformer.`` prefix optional, ``num_batches_tracked``
+    ignored; tensors or numpy arrays) -> the JAX package's tree of float32
+    numpy arrays. Every leaf of the layout must be there, and no other."""
+    from ..detection.segformer import SegFormerConfig, convert_hf_state_dict
+
+    state = convert_hf_state_dict(state)
+    flat = {}
+    for key, path, shape, kind in _segformer_layout(cfg or SegFormerConfig()):
+        key = key.removeprefix("segformer.")
+        if key not in state:
+            raise ValueError(f"SegFormer key {key} is missing")
+        v = state.pop(key)
+        arr = np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v, np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"SegFormer key {key} has shape {arr.shape}, expected {shape}")
+        flat[path] = arr.transpose(2, 3, 1, 0) if kind == "conv" else arr.T if kind == "dense" else arr
+    if state:
+        raise ValueError(f"SegFormer keys the layout does not have: {sorted(state)[:8]}")
+    return _unflatten(flat)
+
+
 def seeded_segformer_state(cfg=None, seed: int = 0) -> dict:
     """An HF-keyed SegFormer state dict ({key: numpy array}, the
     ``segformer.`` prefix and ``num_batches_tracked`` included) from a numpy

@@ -38,6 +38,7 @@ from torch import nn
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # PyTorch BatchNorm2d's default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,9 +189,12 @@ class _MLP(nn.Module):
 
 
 class _BatchNorm(nn.Module):
-    """Inference BatchNorm on running statistics, (x - mean) * rsqrt(var +
-    eps) * scale + bias as the JAX package computes it; holds no
-    ``num_batches_tracked``."""
+    """BatchNorm as the JAX package computes it, (x - mean) * rsqrt(var +
+    eps) * scale + bias; holds no ``num_batches_tracked``. In eval mode on
+    the running statistics. In train mode (detection/train.py) on the
+    batch's mean and biased variance over (N, H, W), and the running pair
+    moves by momentum ``BN_MOMENTUM`` towards the batch mean and unbiased
+    variance."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -201,8 +205,16 @@ class _BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         col = lambda t: t[:, None, None]  # noqa: E731
-        return (x - col(self.running_mean)) * col(torch.rsqrt(self.running_var + BN_EPS)) * col(self.weight) + col(
-            self.bias)
+        if not self.training:
+            return (x - col(self.running_mean)) * col(torch.rsqrt(self.running_var + BN_EPS)) * col(
+                self.weight) + col(self.bias)
+        mean = x.mean(dim=(0, 2, 3))
+        var = (x - col(mean)).square().mean(dim=(0, 2, 3))
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+            self.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var * (n / max(n - 1, 1)))
+        return (x - col(mean)) * col(torch.rsqrt(var + BN_EPS)) * col(self.weight) + col(self.bias)
 
 
 class _DecodeHead(nn.Module):

@@ -11,6 +11,11 @@ launch of K3 instead.
 The device is the caller's choice: ``device=None`` means the CUDA card, and
 without one the constructor raises; ``device="cpu"`` runs the plain PyTorch
 versions of the kernels (what the tests do).
+
+Data-parallel serving (``process_group``; parallel/mesh.py), the counterpart
+of the JAX package's ``Predictor(mesh=)``: every rank holds the weights,
+pads each bucket batch to a multiple of the world size, decodes its rows and
+gathers every rank's tokens, so each rank returns all the strings.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..decode.beam import beam_decode
 from ..decode.greedy import greedy_decode
 from ..models.ocr_model import encode
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
+from ..parallel.mesh import data_shard, gather_rows, world_of
 from ..preprocess import PreparedBatch, Preprocessor
 from ..tokenizer import Tokenizer
 
@@ -102,12 +108,16 @@ class Predictor:
 
     Weights: ``params``/``batch_stats`` in the JAX package's layout (nested
     dicts of numpy arrays), or ``model_path`` to any kind that
-    ``load_weights`` reads."""
+    ``load_weights`` reads. ``process_group``: serve data-parallel over the
+    group, this rank on ``device``; every rank must call with the same
+    lines."""
 
     def __init__(self, params=None, batch_stats=None, model_cfg: ModelConfig | None = None, device=None,
                  config: OCRConfig | None = None, vocab_path: str | Path | None = None,
-                 model_path: str | Path | None = None):
+                 model_path: str | Path | None = None, process_group=None):
         self.device = resolve_device(device)
+        self.group = process_group
+        self._rank, self._world = world_of(process_group)
         set_parity_mode()
         self.config = config or OCRConfig()
         self.tokenizer = Tokenizer(vocab_path)
@@ -137,6 +147,8 @@ class Predictor:
         )
 
     def _to_device_batch(self, batch: PreparedBatch):
+        """The batch padded to its batch bucket (repeating its last line),
+        this rank's rows of it on the device, and the true batch size."""
         b = batch.lines.shape[0]
         padded_b = _round_up(b, self.config.runtime.batch_buckets)
         lines, counts = batch.lines, batch.chunk_counts
@@ -144,6 +156,9 @@ class Predictor:
             reps = padded_b - b
             lines = np.concatenate([lines, np.repeat(lines[-1:], reps, axis=0)])
             counts = np.concatenate([counts, np.repeat(counts[-1:], reps, axis=0)])
+        if self._world > 1:
+            shard = data_shard({"lines": lines, "counts": counts}, self._rank, self._world)
+            lines, counts = shard["lines"], shard["counts"]
         lines_t, counts_t = torch.from_numpy(np.ascontiguousarray(lines)), torch.from_numpy(counts)
         if self.device.type == "cuda":
             lines_t = lines_t.pin_memory().to(self.device, non_blocking=True)
@@ -164,6 +179,8 @@ class Predictor:
             tokens = greedy_decode(self.params, memory, pad_mask, self.model_cfg, dec_cfg, stats=stats)
         self.decode_steps += stats["steps"]
         self.mega_batches += stats.get("mega", 0)
+        if self._world > 1:
+            tokens = gather_rows(tokens, self.group)
         return tokens[:b].cpu().numpy()
 
     def predict_batch_tokens(self, image_list: list, beam_width: int = 1, batch_size: int = 8,

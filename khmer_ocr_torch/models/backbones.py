@@ -29,6 +29,7 @@ statistics and returns updated running ones (batch_norm).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.adaptive_pool import adaptive_avg_pool2d
@@ -42,12 +43,24 @@ def conv2d(p: dict, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, p["w"], p.get("b"), padding=p["w"].shape[-1] // 2)
 
 
-def batch_norm(p: dict, s: dict, x: torch.Tensor, train: bool = False):
+def batch_norm(p: dict, s: dict, x: torch.Tensor, train: bool = False, group=None):
     """BatchNorm over NCHW -> (y, new statistics). Inference normalises with
     the stored ``s["mean"]``/``s["var"]``; training with the batch's mean and
     biased variance over (N, H, W), every sample of the batch included, and
     moves the running statistics by momentum 0.1 towards the batch mean and
-    the unbiased variance (PyTorch's BatchNorm2d)."""
+    the unbiased variance (PyTorch's BatchNorm2d). Under a process group
+    of more than one rank (data-parallel training) the batch is every
+    rank's: the statistics are summed over the group
+    (parallel/mesh.py::global_batch_norm); a group of one rank holds the
+    whole batch, and takes the path without a group."""
+    if train and group is not None and dist.get_world_size(group) > 1:
+        from ..parallel.mesh import global_batch_norm
+
+        y, mean, var, count = global_batch_norm(x, p["scale"], p["bias"], BN_EPS, group)
+        with torch.no_grad():
+            new_s = {"mean": s["mean"] * (1 - BN_MOMENTUM) + mean * BN_MOMENTUM,
+                     "var": s["var"] * (1 - BN_MOMENTUM) + var * (count / (count - 1)) * BN_MOMENTUM}
+        return y, new_s
     if train:  # PyTorch's own training BatchNorm, which moves the copies of the running statistics in place
         new_s = {"mean": s["mean"].clone(), "var": s["var"].clone()}
         y = F.batch_norm(x, new_s["mean"], new_s["var"], p["scale"], p["bias"], training=True,
@@ -57,9 +70,9 @@ def batch_norm(p: dict, s: dict, x: torch.Tensor, train: bool = False):
     return (x - s["mean"][:, None, None]) * inv[:, None, None] + p["bias"][:, None, None], s
 
 
-def conv_bn_relu(p: dict, s: dict, name: str, x: torch.Tensor, train: bool, ns: dict) -> torch.Tensor:
+def conv_bn_relu(p: dict, s: dict, name: str, x: torch.Tensor, train: bool, ns: dict, group=None) -> torch.Tensor:
     """NCHW conv (SAME) + BatchNorm + ReLU; the BatchNorm's new statistics go to ``ns``."""
-    y, ns[f"bn_{name}"] = batch_norm(p[f"bn_{name}"], s[f"bn_{name}"], conv2d(p[name], x), train)
+    y, ns[f"bn_{name}"] = batch_norm(p[f"bn_{name}"], s[f"bn_{name}"], conv2d(p[name], x), train, group)
     return torch.relu(y)
 
 
@@ -71,40 +84,40 @@ def se_block(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x * y.transpose(1, 2)[:, :, None, :]
 
 
-def se_vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False):
+def se_vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False, group=None):
     """x: (B, H, W, 1) NHWC -> ((B, 2, 32, 512) NHWC, new stats)."""
     s, ns = p if stats is None else stats, {}
     x = x.permute(0, 3, 1, 2)
-    x = conv_bn_relu(p, s, "conv1", x, train, ns)
+    x = conv_bn_relu(p, s, "conv1", x, train, ns, group)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, s, "conv2", x, train, ns)
+    x = conv_bn_relu(p, s, "conv2", x, train, ns, group)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, s, "conv3", x, train, ns)
-    x = conv_bn_relu(p, s, "conv4", x, train, ns)
+    x = conv_bn_relu(p, s, "conv3", x, train, ns, group)
+    x = conv_bn_relu(p, s, "conv4", x, train, ns, group)
     x = se_block(p["se3"], x)
     x = F.max_pool2d(x, (2, 1), (2, 1))
-    x = conv_bn_relu(p, s, "conv5", x, train, ns)
-    x = conv_bn_relu(p, s, "conv6", x, train, ns)
+    x = conv_bn_relu(p, s, "conv5", x, train, ns, group)
+    x = conv_bn_relu(p, s, "conv6", x, train, ns, group)
     x = se_block(p["se4"], x)
     x = F.max_pool2d(x, (2, 1), (2, 1))
-    x = conv_bn_relu(p, s, "conv7", x, train, ns)
+    x = conv_bn_relu(p, s, "conv7", x, train, ns, group)
     x = se_block(p["se5"], x)
     return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32)), ns
 
 
-def vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False):
+def vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False, group=None):
     """x: (B, H, W, 1) NHWC -> ((B, 2, 32, 512) NHWC, new stats)."""
     s, ns = p if stats is None else stats, {}
     x = x.permute(0, 3, 1, 2)
-    x = conv_bn_relu(p, s, "conv1", x, train, ns)
+    x = conv_bn_relu(p, s, "conv1", x, train, ns, group)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, s, "conv2", x, train, ns)
+    x = conv_bn_relu(p, s, "conv2", x, train, ns, group)
     x = F.max_pool2d(x, (2, 2), (2, 2))
-    x = conv_bn_relu(p, s, "conv3", x, train, ns)
-    x = conv_bn_relu(p, s, "conv4", x, train, ns)
+    x = conv_bn_relu(p, s, "conv3", x, train, ns, group)
+    x = conv_bn_relu(p, s, "conv4", x, train, ns, group)
     x = F.max_pool2d(x, (2, 1), (2, 1))
-    x = conv_bn_relu(p, s, "conv5", x, train, ns)
-    x = conv_bn_relu(p, s, "conv6", x, train, ns)
+    x = conv_bn_relu(p, s, "conv5", x, train, ns, group)
+    x = conv_bn_relu(p, s, "conv6", x, train, ns, group)
     x = F.max_pool2d(x, (2, 1), (2, 1))
     x = conv2d(p["conv7"], x)  # plain conv: no BatchNorm, no ReLU
     return adaptive_avg_pool2d(x.permute(0, 2, 3, 1), (2, 32)), ns
@@ -113,29 +126,29 @@ def vgg_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool =
 _RESNET_POOLS = [(2, 2), (2, 1), (2, 1), None]  # after each stage of convert/from_jax.py::RESNET_STAGES
 
 
-def basic_block_apply(p: dict, s: dict, x: torch.Tensor, train: bool):
+def basic_block_apply(p: dict, s: dict, x: torch.Tensor, train: bool, group=None):
     """ResNet BasicBlock on NCHW: two conv + BatchNorm, a projected shortcut
     where the width changes, ReLU of the sum. -> (y, new stats)."""
     ns = {}
-    out, ns["bn1"] = batch_norm(p["bn1"], s["bn1"], conv2d(p["conv1"], x), train)
-    out, ns["bn2"] = batch_norm(p["bn2"], s["bn2"], conv2d(p["conv2"], torch.relu(out)), train)
+    out, ns["bn1"] = batch_norm(p["bn1"], s["bn1"], conv2d(p["conv1"], x), train, group)
+    out, ns["bn2"] = batch_norm(p["bn2"], s["bn2"], conv2d(p["conv2"], torch.relu(out)), train, group)
     sc = x
     if "short_conv" in p:
-        sc, ns["short_bn"] = batch_norm(p["short_bn"], s["short_bn"], conv2d(p["short_conv"], x), train)
+        sc, ns["short_bn"] = batch_norm(p["short_bn"], s["short_bn"], conv2d(p["short_conv"], x), train, group)
     return torch.relu(out + sc), ns
 
 
-def resnet_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False):
+def resnet_apply(p: dict, x: torch.Tensor, stats: dict | None = None, train: bool = False, group=None):
     """x: (B, H, W, 1) NHWC -> ((B, 2, 32, 512) NHWC, new stats)."""
     s, ns = p if stats is None else stats, {}
     x = x.permute(0, 3, 1, 2)
-    x, ns["stem_bn"] = batch_norm(p["stem_bn"], s["stem_bn"], conv2d(p["stem_conv"], x), train)
+    x, ns["stem_bn"] = batch_norm(p["stem_bn"], s["stem_bn"], conv2d(p["stem_conv"], x), train, group)
     x = F.max_pool2d(torch.relu(x), (2, 2), (2, 2))
     for i, pool in enumerate(_RESNET_POOLS):
         stage = f"layer{i + 1}"
         ns[stage] = []
         for block, block_s in zip(p[stage], s[stage]):
-            x, block_ns = basic_block_apply(block, block_s, x, train)
+            x, block_ns = basic_block_apply(block, block_s, x, train, group)
             ns[stage].append(block_ns)
         if pool is not None:
             x = F.max_pool2d(x, pool, pool)

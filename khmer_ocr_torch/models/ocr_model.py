@@ -56,15 +56,17 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cpu") -> tuple[dict, dic
 
 
 def encode(params: dict, chunks: torch.Tensor, chunk_counts: torch.Tensor, cfg: ModelConfig, train: bool = False,
-           drop=None, batch_stats: dict | None = None):
+           drop=None, batch_stats: dict | None = None, group=None):
     """chunks: (B, N, H, W) normalised; chunk_counts: (B,) valid chunks.
     Returns (memory (B, N*32, D), pad_mask (B, N*32) True = padding), and in
     ``train`` mode also the BatchNorm statistics the batch moved
     (``batch_stats`` holds the running ones; without it they are read from
-    ``params``). ``drop``: the encoder layers' dropout (layers.Dropout)."""
+    ``params``). ``drop``: the encoder layers' dropout (layers.Dropout).
+    ``group``: the process group of data-parallel training, over whose
+    whole batch the backbone's BatchNorm takes its statistics."""
     b, n, h, w = chunks.shape
     f, new_stats = backbones.BACKBONE_APPLY[cfg.backbone](params["backbone"], chunks.reshape(b * n, h, w, 1),
-                                                          batch_stats, train)
+                                                          batch_stats, train, group)
     tok = patch_apply(params["patch"], f)
     for lp in params["enc"]:
         tok = encoder_layer(lp, cfg.num_heads, tok, drop)
@@ -95,10 +97,10 @@ def decode_train(params: dict, memory, memory_pad_mask, tgt_tokens, cfg: ModelCo
 
 
 def forward_train(params: dict, batch_stats: dict, chunks, chunk_counts, tgt_in, cfg: ModelConfig, drop=None,
-                  train: bool = True):
+                  train: bool = True, group=None):
     """(chunks, tgt_in) -> (logits, new batch_stats): the teacher-forced forward."""
     if train:
-        memory, pad_mask, new_stats = encode(params, chunks, chunk_counts, cfg, True, drop, batch_stats)
+        memory, pad_mask, new_stats = encode(params, chunks, chunk_counts, cfg, True, drop, batch_stats, group)
     else:
         (memory, pad_mask), new_stats = encode(params, chunks, chunk_counts, cfg, False, drop, batch_stats), batch_stats
     return decode_train(params, memory, pad_mask, tgt_in, cfg, drop), new_stats

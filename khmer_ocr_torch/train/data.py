@@ -8,6 +8,9 @@ fills emits its batch at once, and the tails are padded with repeats of
 their own samples at the end of the epoch (every batch keeps the batch
 size). Lines are resized once (``Preprocessor.load_line_u8``: numpy lines
 already ``img_height`` high need no PIL) and kept as uint8 across epochs.
+With ``augment`` (and no device augmentation) each line of the "chunks"
+layout goes through the host ``Augmenter`` (train/augment.py) with its own
+seed drawn from the epoch's generator, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 from ..config import PreprocessConfig, TrainConfig
 from ..preprocess import Preprocessor, chunk_line, normalize
 from ..tokenizer import Tokenizer
+from .augment import Augmenter
 
 LABEL_BUCKETS = (16, 32, 64, 128, 256)
 CHUNK_BUCKETS_TRAIN = (1, 2, 3, 4, 6, 8, 12, 16)
@@ -63,27 +67,36 @@ class LineDataset:
     """In-memory (image, text) samples with a random subset drawn every
     epoch. ``device_augment``: batches in the "lines" layout, augmented,
     cut and normalised by the train step on the device; otherwise in the
-    "chunks" layout, cut and normalised here."""
+    "chunks" layout, cut and normalised here, after the host ``Augmenter``
+    (probability ``train_cfg.augment_prob``) when ``augment`` is set."""
 
     def __init__(self, samples: list, tokenizer: Tokenizer | None = None,
                  preprocess: PreprocessConfig | None = None, train_cfg: TrainConfig | None = None,
-                 device_augment: bool = False):
+                 device_augment: bool = False, augment: bool = False):
         self.samples = samples
         self.tokenizer = tokenizer or Tokenizer()
         self.pre = preprocess or PreprocessConfig()
         self.train_cfg = train_cfg or TrainConfig()
         self.device_augment = device_augment
+        self.augmenter = Augmenter(self.train_cfg.augment_prob) if (augment and not device_augment) else None
         self._loader = Preprocessor(self.pre)
         self._line_cache: dict[int, np.ndarray] = {}
 
     def __len__(self):
         return len(self.samples)
 
-    def _prepare_one(self, idx: int):
+    def _prepare_one(self, idx: int, seed: int):
+        """-> (line, chunk count, text): the uint8 line in the "lines"
+        layout; else the float line in [0, 1], augmented with
+        ``default_rng(seed)`` when there is an augmenter."""
         line = self._line_cache.get(idx)
         if line is None:
             line = self._loader.load_line_u8(self.samples[idx][0])
             self._line_cache[idx] = line
+        if not self.device_augment:
+            line = line.astype(np.float32) / 255.0
+            if self.augmenter is not None:
+                line = self.augmenter(line, np.random.default_rng(seed))
         n = min(self.pre.num_chunks(line.shape[1]), CHUNK_BUCKETS_TRAIN[-1])
         return line, n, self.samples[idx][1]
 
@@ -96,10 +109,11 @@ class LineDataset:
             idxs = rng.choice(idxs, size=sample_size, replace=False)
         else:
             rng.shuffle(idxs)
+        child_seeds = rng.integers(0, 2 ** 31, size=len(idxs))  # drawn in every mode, as the JAX package does
         groups: dict[tuple[int, int], list] = {}
         cap = max_label_len or self.train_cfg.max_label_len
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
-            for line, n, text in pool.map(self._prepare_one, idxs.tolist()):
+            for line, n, text in pool.map(self._prepare_one, idxs.tolist(), child_seeds.tolist()):
                 ids = self.tokenizer.encode(text)
                 nb = _bucket(n, CHUNK_BUCKETS_TRAIN)
                 key = (nb, _label_bucket(len(ids), nb, cap))
@@ -132,7 +146,7 @@ class LineDataset:
                 lines[i, :, :keep] = line[:, :keep]
                 widths[i] = keep
             else:
-                chunks[i] = normalize(chunk_line(line.astype(np.float32) / 255.0, self.pre, nb))
+                chunks[i] = normalize(chunk_line(line, self.pre, nb))
             counts[i] = n
             if len(ids) > lb:
                 ids = ids[: lb - 1] + [self.tokenizer.eos_idx]

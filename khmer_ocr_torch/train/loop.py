@@ -8,6 +8,12 @@ without one ``train`` raises; ``device="cpu"`` runs the plain PyTorch
 versions of the kernels. Each epoch's sample order and random draws
 (augmentation, dropout) come from generators seeded by (seed, epoch), so a
 run resumed at an epoch boundary continues as the uninterrupted run would.
+
+Data-parallel (``process_group``; parallel/mesh.py): every rank draws the
+same epoch of global batches and trains on its rows of each, with the step
+of train/step.py under the group; rank 0's initial params are broadcast,
+each rank's device draws are seeded by (seed, epoch) plus its rank, and
+only rank 0 logs, runs the eye test and writes metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -25,11 +31,12 @@ import torch
 
 from ..config import OCRConfig
 from ..infer.predictor import resolve_device, set_parity_mode
+from ..parallel.mesh import broadcast_, data_shard, world_of
 from ..tokenizer import Tokenizer
 from .checkpoint import load_checkpoint_full, save_checkpoint
 from .data import LineDataset
 from .schedule import staged_cyclic_lr
-from .step import eval_logits, init_train_state, make_train_step, state_from
+from .step import eval_logits, init_train_state, make_train_step, state_from, tree_leaves
 
 logger = logging.getLogger(__name__)
 
@@ -74,18 +81,23 @@ def _epoch_seed(seed: int, epoch: int) -> int:
 
 def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir="checkpoints", device=None,
           log_every: int = 100, eye_test_every: int = 500, num_epochs: int | None = None, resume_from=None,
-          metrics_path=None):
+          metrics_path=None, process_group=None):
     """Train the configured model on ``dataset``; returns the final
     TrainState. ``resume_from``: a checkpoint directory this loop saved
     (params, statistics, moments and step restored; training continues with
-    the epoch after the one it closed)."""
+    the epoch after the one it closed). ``process_group``: train
+    data-parallel over the group, each rank on ``device`` (the batch size,
+    global, must divide among the ranks)."""
     device = resolve_device(device)
+    rank, world = world_of(process_group)
     set_parity_mode()
     config = config or OCRConfig()
     tcfg = config.train
     tokenizer = dataset.tokenizer
     mcfg = dataclasses.replace(config.model, vocab_size=len(tokenizer), pad_idx=tokenizer.pad_idx)
 
+    if tcfg.batch_size % world:
+        raise ValueError(f"batch size {tcfg.batch_size} does not divide among {world} ranks")
     sample_size = min(tcfg.epoch_sample_size, len(dataset))
     steps_per_epoch = max(sample_size // tcfg.batch_size, 1)
     schedule = staged_cyclic_lr(tcfg, steps_per_epoch)
@@ -100,9 +112,11 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
         # the epoch the checkpoint closed: bucket tails make an epoch's steps vary
         start_epoch = int(payload.get("epoch", state.step // steps_per_epoch)) + 1
         logger.info("resumed from %s at step %d (epoch %d)", resume_from, state.step, start_epoch)
+    if process_group is not None:
+        broadcast_(tree_leaves(state.params) + tree_leaves(state.batch_stats), process_group)
     chunk_geom = (config.preprocess.chunk_width, config.preprocess.chunk_stride)
     aug_prob = tcfg.augment_prob if dataset.device_augment else 0.0
-    train_step = make_train_step(mcfg, chunk_geom, aug_prob, tcfg.adam_b1, tcfg.adam_b2)
+    train_step = make_train_step(mcfg, chunk_geom, aug_prob, tcfg.adam_b1, tcfg.adam_b2, process_group)
     # labels carry <sos> and <eos>; the teacher-forcing input (len - 1) must fit the decoder's positions
     max_label_len = min(tcfg.max_label_len, mcfg.decode_max_len + 1)
     pin = device.type == "cuda"
@@ -110,15 +124,18 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
     def produce(epoch_rng):
         for batch in dataset.epoch_batches(tcfg.batch_size, epoch_rng, sample_size=sample_size,
                                            max_label_len=max_label_len):
-            arrays = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.as_dict().items()}
+            arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in data_shard(batch.as_dict(), rank, world).items()}
             yield {k: v.pin_memory() if pin else v for k, v in arrays.items()}
 
     ckpt_dir = Path(checkpoint_dir)
     total_epochs = num_epochs or tcfg.num_epochs
     for epoch in range(start_epoch, total_epochs + 1):
-        logger.info("epoch %d/%d starting (%d samples, batch %d)", epoch, total_epochs, sample_size, tcfg.batch_size)
+        if rank == 0:
+            logger.info("epoch %d/%d starting (%d samples, batch %d)", epoch, total_epochs, sample_size,
+                        tcfg.batch_size)
         seed = _epoch_seed(tcfg.seed, epoch)
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = torch.Generator(device=device).manual_seed(seed + rank)
         epoch_loss, epoch_batches, since_log = 0.0, 0, 0
         pending: list = []
         last = None
@@ -135,11 +152,12 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
                 drained = torch.stack(pending).cpu().numpy()
                 pending.clear()
                 epoch_loss += float(drained.sum())
-                logger.info("epoch %d batch %d loss %.4f (%.1f lines/s)", epoch, epoch_batches,
-                            float(drained[-log_every:].mean()),
-                            since_log * tcfg.batch_size / (time.perf_counter() - t0))
+                if rank == 0:
+                    logger.info("epoch %d batch %d loss %.4f (%.1f lines/s)", epoch, epoch_batches,
+                                float(drained[-log_every:].mean()),
+                                since_log * tcfg.batch_size / (time.perf_counter() - t0))
                 since_log, t0 = 0, time.perf_counter()
-            if epoch_batches % eye_test_every == 0:
+            if rank == 0 and epoch_batches % eye_test_every == 0:
                 logits = eval_logits(state.params, state.batch_stats, last, mcfg, chunk_geom)
                 true, pred = _eye_test(tokenizer, logits, last["labels"])
                 logger.info("eye test | TRUE: %s | PRED: %s", true, pred)
@@ -147,6 +165,8 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
             epoch_loss += float(torch.stack(pending).sum().cpu())
         mean_loss = epoch_loss / max(epoch_batches, 1)
         seconds = time.perf_counter() - ep_t0
+        if rank != 0:
+            continue
         logger.info("epoch %d done: mean loss %.4f over %d batches", epoch, mean_loss, epoch_batches)
         if metrics_path is not None:
             with open(metrics_path, "a") as f:

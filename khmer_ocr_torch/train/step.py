@@ -12,6 +12,13 @@ one copy of each on the device.
 
 Randomness (augmentation, then dropout) comes from one ``torch.Generator``
 on the device, drawn in a fixed order.
+
+Data-parallel (``group``, a torch.distributed process group of which each
+rank holds its rows of the global batch; parallel/mesh.py): BatchNorm takes
+the global batch's statistics, the loss divides by the global count of
+targets, and the gradients are summed over the group before Adam, so the
+step equals the one-process step on the whole batch and every rank's params
+stay equal.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..config import ModelConfig
 from ..models.layers import Dropout
 from ..models.ocr_model import forward_train, init_model
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
+from ..parallel.mesh import all_reduce_sum_
 from .device_augment import augment_lines
 
 ADAM_EPS = 1e-8
@@ -94,18 +102,23 @@ def batch_chunks(batch: dict, generator, train: bool, chunk_geom: tuple[int, int
 
 
 def loss_fn(params, batch_stats, batch: dict, model_cfg: ModelConfig, generator=None, train: bool = True,
-            chunk_geom: tuple[int, int] = (100, 84), augment_prob: float = 0.0):
-    """-> (masked cross-entropy of the shifted labels, new batch_stats)."""
+            chunk_geom: tuple[int, int] = (100, 84), augment_prob: float = 0.0, group=None):
+    """-> (masked cross-entropy of the shifted labels, new batch_stats).
+    Under a process group: this rank's share of the global loss, its summed
+    cross-entropy over the targets of every rank."""
     chunks = batch_chunks(batch, generator, train, chunk_geom, augment_prob)
     drop = Dropout(model_cfg.dropout, deterministic=not train, generator=generator)
     labels = batch["labels"].to(torch.long)
     logits, new_stats = forward_train(params, batch_stats, chunks, batch["chunk_counts"], labels[:, :-1], model_cfg,
-                                      drop, train)
+                                      drop, train, group)
     targets = labels[:, 1:]
     mask = (targets != model_cfg.pad_idx).to(torch.float32)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0), new_stats
+    count = mask.sum()
+    if group is not None:
+        all_reduce_sum_([count], group)
+    return (nll * mask).sum() / count.clamp_min(1.0), new_stats
 
 
 @torch.no_grad()
@@ -126,22 +139,26 @@ def adam_update(params: list, grads: list, opt_state: dict, lr: float, b1: float
 
 
 def make_train_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84), augment_prob: float = 0.0,
-                    b1: float = 0.9, b2: float = 0.999):
+                    b1: float = 0.9, b2: float = 0.999, group=None):
     """-> train_step(state, batch, generator, lr) -> (state, {"loss",
     "grad_norm"}), both 0-d tensors left on the device. ``batch``: a dict of
-    tensors on the params' device."""
+    tensors on the params' device; under ``group`` this rank's rows, and the
+    loss and norm are the global batch's."""
 
     def train_step(state: TrainState, batch: dict, generator, lr: float):
         leaves = tree_leaves(state.params)
         loss, new_stats = loss_fn(state.params, state.batch_stats, batch, model_cfg, generator, True, chunk_geom,
-                                  augment_prob)
+                                  augment_prob, group)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        loss = loss.detach()
+        if group is not None:
+            all_reduce_sum_(list(grads) + [loss], group)
         with torch.no_grad():
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         adam_update(leaves, list(grads), state.opt_state, lr, b1, b2)
         state.batch_stats = new_stats
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step
 

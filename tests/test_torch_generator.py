@@ -101,6 +101,7 @@ def test_train_cli_synthetic_renders_lines(tmp_path):
     texts = [t for _, t in DocumentTextGenerator().generate(3, processes=1)]
     assert sorted(got["texts"]) == sorted(texts)
     assert got["device"] == "cpu" and got["device_augment"] and got["heights"] != [48, 48, 48]
+    assert not got["process_group"]  # no --data-parallel: one process
 
 
 def _train_cli_main(tmp: Path) -> None:
@@ -110,10 +111,11 @@ def _train_cli_main(tmp: Path) -> None:
     import khmer_ocr_torch.train.loop as loop
     from khmer_ocr_torch.train import cli
 
-    def record(dataset, config, checkpoint_dir, device, num_epochs, resume_from):
+    def record(dataset, config, checkpoint_dir, device, num_epochs, resume_from, process_group):
         (tmp / "train_cli.json").write_text(json.dumps({
             "texts": [t for _, t in dataset.samples], "heights": [int(img.shape[0]) for img, _ in dataset.samples],
-            "device": str(device), "device_augment": dataset.device_augment}, ensure_ascii=False))
+            "device": str(device), "device_augment": dataset.device_augment,
+            "process_group": process_group is not None}, ensure_ascii=False))
 
     loop.train = record
     cli.main(["--synthetic", "3", "--device", "cpu", "--checkpoint-dir", str(tmp / "ck")])

@@ -6,11 +6,13 @@
   them inside their functions); no file of the port, nor chip_smoke.py,
   names the JAX package or imports JAX.
 * The entry points (the Predictor, ``recognize``, ``recognize_batch``, the
-  CLI, ``train()``, the train CLI, the evaluation CLI, and the page path's
+  CLI, ``train()``, the train CLI, the layout trainer's ``finetune`` and
+  CLI, the evaluation CLI, and the page path's
   ``LayoutInference``, ``KhmerOCRPipeline(engine="custom")``,
   ``run_layout_aware_pipeline``, ``KhmerOCRInference`` and the layout,
   pipeline and PDF CLIs) need a CUDA card unless the caller asks for the
-  CPU: without one they raise. A kernel wrapper handed a tensor that is not on the
+  CPU: without one they raise; ``--data-parallel`` without a process group
+  raises too. A kernel wrapper handed a tensor that is not on the
   CPU launches its kernel or raises; it never falls back to the plain version.
 
 The torch-side checks run in one subprocess (this file run as a script).
@@ -39,11 +41,15 @@ RAISES = ("predictor_without_device", "recognize_without_device", "recognize_bat
           "train_cli_without_device", "lstm_backward_wrapper_on_meta", "evaluate_cli_without_device",
           "layout_inference_without_device", "pipeline_custom_without_device",
           "layout_aware_pipeline_without_device", "standalone_without_device", "layout_cli_without_device",
-          "pipeline_cli_without_device", "pdf_cli_without_device")
+          "pipeline_cli_without_device", "pdf_cli_without_device", "layout_finetune_without_device",
+          "layout_train_cli_without_device", "data_parallel_cli_without_torchrun",
+          "data_parallel_cli_cpu_without_torchrun")
 
 _PAGE_PATH = ("import khmer_ocr_torch.detection.detector, khmer_ocr_torch.detection.cli, "
               "khmer_ocr_torch.detection.surya, khmer_ocr_torch.pipeline.engine, khmer_ocr_torch.pipeline.document, "
               "khmer_ocr_torch.pipeline.pdf, khmer_ocr_torch.infer.standalone")
+_TRAINING = ("import khmer_ocr_torch.detection.train, khmer_ocr_torch.train.augment, khmer_ocr_torch.parallel.mesh, "
+             "khmer_ocr_torch.train.cli")
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import khmer_ocr_torch
@@ -52,16 +58,16 @@ for m in pkgutil.walk_packages(khmer_ocr_torch.__path__, "khmer_ocr_torch."):
 """
 
 
-@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.train.loop", _PAGE_PATH],
-                         ids=["package", "every_module", "train_loop", "page_path"])
+@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.train.loop", _PAGE_PATH,
+                                  _TRAINING], ids=["package", "every_module", "train_loop", "page_path", "training"])
 def test_import_loads_neither_jax_nor_the_jax_package(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'khmer_ocr_tpu')))"
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
-@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.evaluate", _PAGE_PATH],
-                         ids=["package", "every_module", "evaluate", "page_path"])
+@pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.evaluate", _PAGE_PATH,
+                                  _TRAINING], ids=["package", "every_module", "evaluate", "page_path", "training"])
 def test_import_loads_no_pillow_opencv_or_safetensors(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', " \
                    "'safetensors')))"
@@ -225,6 +231,19 @@ def _port_main(tmp: Path) -> None:
     attempt("pdf_cli_without_device",
             lambda: pdf_cli.main(["--image", page, "--model", toy, "--font", str(tmp / "none.ttf"), "--engine",
                                   "custom", "--layout-model", layout, "--outdir", str(tmp / "pdf")]))
+    from khmer_ocr_torch.detection import train as layout_train
+
+    attempt("layout_finetune_without_device", lambda: layout_train.finetune(steps=1, batch_size=1, image_size=64))
+    attempt("layout_train_cli_without_device",
+            lambda: layout_train.main(["--steps", "1", "--image-size", "64", "--out", str(tmp / "lt.npz")]))
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        os.environ.pop(var, None)
+    attempt("data_parallel_cli_without_torchrun",
+            lambda: train_cli.main(["--synthetic", "2", "--epochs", "1", "--data-parallel",
+                                    "--checkpoint-dir", str(tmp / "dp")]))
+    attempt("data_parallel_cli_cpu_without_torchrun",
+            lambda: train_cli.main(["--synthetic", "2", "--epochs", "1", "--data-parallel", "--device", "cpu",
+                                    "--checkpoint-dir", str(tmp / "dp")]))
     set_predictor(None)
     cpu_pipe = KhmerOCRPipeline(engine="custom", layout_model_dir=layout, recognizer_model_path=toy, device="cpu")
     res["page_texts"] = cpu_pipe.process_pages([page])
