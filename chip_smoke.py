@@ -6,8 +6,9 @@
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
      whether Pillow, OpenCV and safetensors import there (nothing needs them);
-  2. build: the five CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
-     one nvcc each, all at once;
+  2. build: the CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
+     one nvcc each, all at once (K2, its tensor-parallel blocks and K3 once
+     per storage type, float32 and bf16);
   3. K1 (LSTM recurrence) against its plain version and cuDNN's nn.LSTM at
      H=192, one direction and two stacked directions, (B, T) in {(1, 4096),
      (8, 1024), (256, 256)}: both routes (thread-block clusters, one CTA per
@@ -97,8 +98,33 @@ Phases, each fatal on failure (exit code != 0, no result line):
      one-process step; the two ranks serve 18 rendered lines at beam 3 with
      the flagship's weights, tokens equal to one process's (each rank's K1
      and K2 launches counted);
- 14. one JSON line with every kernel's numbers;
- 15. the last line: {"ok": true, "device": {...}}.
+ 14. bf16 serving: K2 in bf16 against its plain bf16 version (the same
+     rounding points) at 1, 8 and 64 images x 3 lanes, Tm 256 and 4096,
+     within two bf16 steps, timed beside float32; K3 in bf16 at 8 and 64
+     images x 3 against its plain version (near-ties excepted) and against
+     float32; the flagship on the 64 rendered lines with
+     compute_dtype="bfloat16": strings against the JAX package's bf16
+     strings stored with the lines, mean CER at most theirs + 0.005,
+     lines/s beside float32's by the host loop and with
+     KHMER_OCR_MEGA_DECODE=1, launches counted;
+ 15. the fused decode head: K2 with ``head`` against its plain version in
+     float32 and bf16, timed with and without; 18 flagship lines at beam 3
+     with KHMER_OCR_FUSED_HEAD=1, tokens equal to those without it, one head
+     launch a host-loop step;
+ 16. the tensor-parallel model axis: K2's blocks (csrc/decoder_block.cu)
+     against their plain versions and, both ranks' parts chained in one
+     process, against the unsplit K2 step; then two rank processes sharing
+     the card over gloo (``--tp-rank``), each with its half of the flagship's
+     weights: forward_train logits within 2e-4 / 1e-3 of one process's, 18
+     lines at beam 3 through infer_batch token-equal to one process's, K2
+     block launches per rank;
+ 17. the host input path: whether the native loader (native/imageio.cpp)
+     builds on this machine and, if so, its pixels against PIL's; the
+     Preprocessor's lines/s on 256 PNG files at host_workers 1 and 8;
+     Predictor.warmup's seconds and the first request after it;
+ 18. one JSON line with every kernel's numbers (K2's bf16, head and block
+     variants and K3's bf16 as entries of their own);
+ 19. the last line: {"ok": true, "device": {...}}.
 
 Times come from CUDA events after warm-up (K2's device time from a
 replayed CUDA graph of launches). ``bound_ms`` is the larger of the
@@ -119,6 +145,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # the tensor cores' dense bf16 x bf16 -> f32 rate
 TOL = 1e-4
 NEAR_TIE = 1e-4
 DOC_RUNS, DOC_RUNS_16 = 5, 3  # process_pages runs on the known layout: 4 pages, 16 pages
@@ -129,8 +156,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float, itemsize: int = 4) -> tuple[float, str]:
+    """The least time for these bytes and operations: the operations at the
+    card's peak rate for the storage type (float32 outside the tensor cores
+    for 4-byte operands, bf16 for 2-byte ones)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / (F32_OPS_PER_S if itemsize == 4 else BF16_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -586,19 +616,30 @@ class PlainPath:
         return False
 
 
-def k3_cost(n_img, k, d, f, heads, max_len, tm, tm_valid, n_layers, vocab, layer_numel):
+def k3_cost(n_img, k, d, f, heads, max_len, tm, tm_valid, n_layers, vocab, layer_mat, layer_vec, itemsize=4):
     """Bytes and operations of the whole beam decode for these inputs: every
     layer's weights, the head and the embeddings read once, the valid memory
     K/V rows once, the tokens and scores written once; per step and lane the
-    operations of k2_cost for every layer, plus the head's 2 D V."""
+    operations of k2_cost for every layer, plus the head's 2 D V. The weight
+    matrices, embeddings, head weight and memory K/V are ``itemsize`` bytes
+    an element (the storage type), the vectors, head bias, mask, tokens and
+    scores 4."""
     b = n_img * k
-    nbytes = 4 * (n_layers * layer_numel + 2 * d * vocab + vocab + max_len * d + 2 * n_layers * tm_valid * d
-                  + n_img * tm + n_img * (max_len + 2) + n_img * (k + 1))
+    nbytes = (itemsize * (n_layers * layer_mat + 2 * d * vocab + max_len * d + 2 * n_layers * tm_valid * d)
+              + 4 * (n_layers * layer_vec + vocab + n_img * tm + n_img * (max_len + 2) + n_img * (k + 1)))
     pos_sum = max_len * (max_len + 1) // 2  # attended self positions, summed over the steps
     per_layer = (2 * b * (d * 3 * d + 3 * d * d + 2 * d * f) * max_len + 4 * b * pos_sum * d
                  + 4 * k * tm_valid * d * max_len + 6 * heads * (b * pos_sum + k * tm_valid * max_len)
                  + 30 * b * d * max_len)
     return nbytes, n_layers * per_layer + max_len * b * 2 * d * vocab
+
+
+def layer_numels(lw: dict) -> tuple[int, int]:
+    """(elements of a packed layer's weight matrices, of its vectors)."""
+    from khmer_ocr_torch.ops.kernels.decode_step import MATRIX_FIELDS
+
+    return (sum(v.numel() for k, v in lw.items() if k in MATRIX_FIELDS),
+            sum(v.numel() for k, v in lw.items() if k not in MATRIX_FIELDS))
 
 
 def timed(torch, fn):
@@ -649,7 +690,7 @@ def phase_k3(torch, params, cfg):
     from khmer_ocr_torch.ops.kernels import geometry
 
     d, f, heads, n_layers, vocab = cfg.emb_dim, cfg.dec_ffn_dim, cfg.num_heads, cfg.dec_layers, cfg.vocab_size
-    layer_numel = sum(v.numel() for v in pack_decode_params(params)["dec"]["layers_kernel"][0].values())
+    layer_numel = layer_numels(pack_decode_params(params)["dec"]["layers_kernel"][0])
     eos_params = {**params, "dec": {**params["dec"], "out": dict(params["dec"]["out"])}}
     eos_params["dec"]["out"]["b"] = params["dec"]["out"]["b"].clone()
     eos_params["dec"]["out"]["b"][3] += 4.0  # <eos>: completions retire early
@@ -691,7 +732,7 @@ def phase_k3(torch, params, cfg):
             ms = route_ms[on_chip]
             host_ms = cuda_ms(torch, lambda: beam_decode(prm, memory, pad, cfg,
                                                          dataclasses.replace(dec, mega_mode="0")), 2)
-        nbytes, ops = k3_cost(n_img, k, d, f, heads, ml, tm, int(valid_len.sum()), n_layers, vocab, layer_numel)
+        nbytes, ops = k3_cost(n_img, k, d, f, heads, ml, tm, int(valid_len.sum()), n_layers, vocab, *layer_numel)
         bms, by = bound_ms(nbytes, ops)
         route = "on chip" if on_chip else "global"
         rows.append(dict(shape=shape, route=route, ctas_per_cluster=ctas, chunk=tc, max_abs_err=err, ms=ms,
@@ -2013,9 +2054,791 @@ def phase_document(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tenth slice: bf16 serving, the fused head, the tensor-parallel blocks, the host input path
+# ---------------------------------------------------------------------------
+
+BF16_STEP = 2.0 ** -7  # one bf16 step of a value in [1, 2)
+# K3's bf16 decode against its plain bf16 version on seeded weights (the vocabulary projection scaled by
+# SHARPEN) and random memory: a differing answer is exempt as a near-tie when its normalised score is within
+# BF16_NEAR_TIE of the plain answer's. Correct builds read gaps of 0.0005-0.032 there, a build that kept K3's
+# layer outputs in float32 read 0.018-0.063 (PERF.md section 6): the first-step check below is what tells the two
+# apart, this one holds the search over 64 steps.
+BF16_NEAR_TIE = 0.05
+SHARPEN = 8.0
+# K3's first step in bf16 (max_len 1: the K lane scores are the top-K log-probs of one position, continuous in
+# the inputs, so near-ties cannot part them): the median over images of the largest lane-score difference from
+# the plain bf16 version. The same float32 values rounded at the same points agree but where a last bit flips
+# (correct builds: median under 1e-5); a kernel that rounds elsewhere moves every image (the float32-output build:
+# median 1e-3).
+K3_FIRST_STEP_MEDIAN = 1e-4
+FLAGSHIP = ROOT / "khmer_ocr_torch" / "assets" / "flagship"
+TP_WORLD = 2
+
+
+def bf16_tol(ref) -> float:
+    """Two bf16 steps at the largest magnitude of ``ref``: the kernel and its
+    plain version round the same float32 values to bf16, whose last bit a
+    difference of summation order can flip."""
+    return 2 * BF16_STEP * max(1.0, float(ref.float().abs().max()))
+
+
+def k2_typed_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lineage, weights, itemsize, head=None):
+    """k2_cost with the storage type's bytes: x, the caches, the memory K/V
+    and the weight matrices ``itemsize`` bytes an element, the vectors,
+    mem_valid and the lineage 4; with ``head`` its (D, Vp) weight, f32 bias
+    and (B, Vp) f32 log-probs, and 2 D Vp operations a row."""
+    from khmer_ocr_torch.ops.kernels.decode_step import MATRIX_FIELDS
+
+    mat = sum(v.numel() for k, v in weights.items() if k in MATRIX_FIELDS)
+    vec = sum(v.numel() for k, v in weights.items() if k not in MATRIX_FIELDS)
+    nb0, ops = k2_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lineage, 0)
+    b = n_img * lanes
+    four = n_img * tm + (0 if lineage is None else b * pos)
+    nbytes = itemsize * (nb0 // 4 - four + mat) + 4 * (vec + four)
+    if head is not None:
+        vp = head[0].shape[1]
+        nbytes += itemsize * d * vp + 4 * vp + 4 * b * vp
+        ops += 2 * b * d * vp
+    return nbytes, ops
+
+
+def k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w, dtype=None):
+    """Random inputs of one decode step: x, caches, memory K/V (in ``dtype``
+    when given), ragged validity (float32), image-local lineage."""
+    b = n_img * lanes
+    cast = (lambda t: t.to(dtype)) if dtype is not None else (lambda t: t)
+    x = cast(torch.randn(b, d, device="cuda", generator=gen) * 0.5)
+    sk = cast(torch.randn(b, cache_len, d, device="cuda", generator=gen) * 0.3)
+    sv = cast(torch.randn(b, cache_len, d, device="cuda", generator=gen) * 0.3)
+    mk = cast(torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.3)
+    mv = cast(torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.3)
+    valid_len = torch.randint(1, tm + 1, (n_img,), device="cuda", generator=gen)
+    mvf = (torch.arange(tm, device="cuda")[None, :] < valid_len[:, None]).float().contiguous()
+    lin = torch.randint(0, lanes, (b, w), device="cuda", generator=gen, dtype=torch.int32)
+    return x, sk, sv, mk, mv, mvf, lin, int(valid_len.sum())
+
+
+def fmt_gaps(gaps) -> str:
+    return "[" + ", ".join(f"{g:.5f}" for g in gaps) + "]"
+
+
+def k3_bf16_agree(torch, label, params, cfg, memory, pad, got, ref, n_img, limit, score_tol):
+    """K3 in bf16 against its plain bf16 version on the first ``n_img``
+    images: (the largest difference of the answer's normalised score where
+    the tokens are equal, images whose tokens differ, the normalised-score
+    gap of each). Fails unless each such difference is under ``score_tol``
+    and each gap under ``limit`` (0: no image may differ)."""
+    (tok, sc), (tok_p, sc_p) = got, ref
+    k, ml = sc.shape[1] - 1, tok.shape[1] - 2
+    err, gaps = 0.0, []
+    for i in range(n_img):
+        if torch.equal(tok[i], tok_p[i]):
+            # the answer's normalised score (the best completion's, or lane 0's running score over the
+            # length); the other running lanes may part at near-ties without changing the answer
+            done = sc_p[i, k].item() > -1e29
+            e = abs(sc[i, k].item() - sc_p[i, k].item()) if done else \
+                abs(sc[i, 0].item() - sc_p[i, 0].item()) / (ml + 1)
+            if not e < score_tol:
+                fail(f"bf16 K3 {label}: image {i} answer scores differ by {e:.3e} (tol {score_tol})")
+            err = max(err, e)
+            continue
+        a, b = strip(tok_p[i].tolist()), strip(tok[i].tolist())
+        s_ref, s_got = (memory_score(torch, params, cfg, memory[i:i + 1], pad[i:i + 1], torch.tensor(t, device="cuda"))
+                        for t in (a, b))
+        gaps.append(abs(s_ref - s_got))
+        print(f"[bf16] K3 {label}: image {i} differs from the plain bf16 version: {a} vs {b}; normalised scores "
+              f"{s_ref:.5f} vs {s_got:.5f}")
+        if not abs(s_ref - s_got) < limit:
+            fail(f"bf16 K3 {label}: image {i} differs" + (" and is not a near-tie" if limit else ""))
+    return err, len(gaps), gaps
+
+
+def k3_bf16_first_step(torch, params, cfg, n_img=64, tm=128, k=3):
+    """K3's first step in bf16 against its plain bf16 version (max_len 1,
+    seeded weights, random memory): per image the largest difference of
+    the sorted lane scores (the top-K log-probs) and of the best completion;
+    their median within K3_FIRST_STEP_MEDIAN, each within two bf16 steps of
+    the largest |score|."""
+    from khmer_ocr_torch.config import DecodeConfig
+    from khmer_ocr_torch.ops.kernels import decode_loop as K3
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    d = cfg.emb_dim
+    memory = (torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+    valid_len = torch.randint(1, tm + 1, (n_img,), device="cuda", generator=gen)
+    pad = torch.arange(tm, device="cuda")[None, :] >= valid_len[:, None]
+    dec = DecodeConfig(beam_width=k, max_len=1)
+    with torch.inference_mode():
+        _, sc = K3.fused_beam_decode_kernel(params, memory, pad, cfg, dec, return_scores=True)
+        _, sc_p = K3.fused_beam_decode_plain(params, memory, pad, cfg, dec, return_scores=True)
+    lanes = (sc[:, :k].sort(dim=1).values - sc_p[:, :k].sort(dim=1).values).abs().max(dim=1).values
+    done, done_p = sc[:, k] > -1e29, sc_p[:, k] > -1e29
+    best = torch.where(done & done_p, (sc[:, k] - sc_p[:, k]).abs(), torch.zeros_like(lanes))
+    per_image = torch.maximum(lanes, best).masked_fill(done != done_p, float("inf"))
+    median, worst = per_image.median().item(), per_image.max().item()
+    tol = 2 * BF16_STEP * max(1.0, sc_p[:, :k].abs().max().item())
+    over = int((per_image > K3_FIRST_STEP_MEDIAN).sum())
+    print(f"[bf16] K3's first step, {n_img}x{k} Tm={tm}, against its plain bf16 version: lane scores differ by "
+          f"median {median:.2e} (limit {K3_FIRST_STEP_MEDIAN:g}), max {worst:.2e} (tol {tol:.2e}); {over}/{n_img} "
+          f"images over {K3_FIRST_STEP_MEDIAN:g}")
+    if not (median <= K3_FIRST_STEP_MEDIAN and worst <= tol):
+        fail(f"bf16 K3 first step: lane scores differ by median {median:.3e} (limit {K3_FIRST_STEP_MEDIAN}), max "
+             f"{worst:.3e} (tol {tol:.3e})")
+    return dict(median=median, max=worst, images_over=over, images=n_img)
+
+
+def k3_bf16_real(torch, pred, lines, bw, bs, max_len):
+    """K3 in bf16 against its plain bf16 version on the trained flagship's
+    encoder memory of the rendered lines (bf16 Predictor ``pred``), every
+    batch inside K3's envelope: a trained head on real memory, whose
+    choices are not near-ties, so every line's tokens must be equal and its
+    answer's normalised score within TOL."""
+    from khmer_ocr_torch.infer.predictor import set_parity_mode
+    from khmer_ocr_torch.models.ocr_model import encode
+    from khmer_ocr_torch.ops.kernels import decode_loop as K3
+    from khmer_ocr_torch.ops.lines import device_chunk, u8_to_unit, unit_normalize
+
+    set_parity_mode()  # the bf16 Predictor's "default" precision: its plain version's float32 sums without TF32
+    cfg, dec = pred.model_cfg, pred._dec_cfg(bw, max_len)
+    err, gaps, n_lines, n_batches = 0.0, [], 0, 0
+    with torch.inference_mode():
+        for batch in pred.preprocessor.iter_batches(lines, max_batch=bs):
+            lt, ct, b = pred._to_device_batch(batch)
+            chunks = device_chunk(unit_normalize(u8_to_unit(lt)), pred._chunk_geom).to(torch.bfloat16)
+            memory, pad = encode(pred.params, chunks, ct, cfg)
+            if not K3.should_use_megakernel(bw, dec.max_len, memory.shape[1], cfg.vocab_size, mode="1"):
+                continue
+            got = K3.fused_beam_decode_kernel(pred.params, memory, pad, cfg, dec, return_scores=True)
+            ref = K3.fused_beam_decode_plain(pred.params, memory, pad, cfg, dec, return_scores=True)
+            e, _, g = k3_bf16_agree(torch, f"flagship Tm={memory.shape[1]}", pred.params, cfg, memory, pad, got, ref, b,
+                                    0.0, TOL)
+            err, gaps, n_lines, n_batches = max(err, e), gaps + g, n_lines + b, n_batches + 1
+    print(f"[bf16] K3 on the flagship's bf16 memory of {n_lines} rendered lines ({n_batches} batches inside its "
+          f"envelope), beam {bw}, max_len {dec.max_len}: tokens equal the plain bf16 version but {len(gaps)} near-ties "
+          f"(gaps {fmt_gaps(gaps)}), answer scores max|diff| {err:.2e}")
+    if not n_lines:
+        fail("bf16 K3: no batch of the rendered lines inside K3's envelope")
+    return dict(lines=n_lines, batches=n_batches, images_differing=len(gaps), exempt_gaps=gaps, max_abs_err=err)
+
+
+def phase_bf16(torch, state, cfg, smi):
+    """bf16 serving on the card. (i) K2 in bf16 against its plain bf16
+    version (the same rounding points) at 1, 8 and 64 images x 3 lanes, Tm
+    256 and 4096, w=64 at pos 63: the output and the written cache slot
+    within two bf16 steps of their largest value, every other slot
+    untouched; its device time beside the float32 kernel's on the same
+    inputs (CUDA graphs), with the bound at 2 bytes an element and the
+    bf16 operation rate. (ii) K3 in bf16 against its plain bf16 version:
+    its first step (k3_bf16_first_step); then at 8 and 64 images x 3, Tm
+    128, max_len 64 on the seeded weights with
+    the vocabulary projection scaled by SHARPEN and random memory, then on
+    the trained flagship's bf16 memory of the rendered lines (the batches
+    inside K3's envelope): tokens equal but for near-ties (normalised
+    scores within BF16_NEAR_TIE; each exempt gap printed and returned), the
+    answer's normalised score within BF16_NEAR_TIE where they are equal;
+    the images whose tokens equal the float32 kernel's counted; times
+    beside float32. (iii) The trained
+    flagship on the 64 rendered lines with compute_dtype="bfloat16",
+    matmul precision "default": the strings against the JAX package's bf16
+    strings stored with the lines, the mean CER at most theirs + 0.005;
+    lines/s beside float32's, by the host loop and with
+    KHMER_OCR_MEGA_DECODE=1, each request's launches counted."""
+    import dataclasses
+
+    import numpy as np
+
+    from khmer_ocr_torch.config import DecodeConfig, OCRConfig, RuntimeConfig
+    from khmer_ocr_torch.decode.beam import beam_decode
+    from khmer_ocr_torch.infer.predictor import Predictor, cast_params, set_parity_mode
+    from khmer_ocr_torch.metrics import score
+    from khmer_ocr_torch.models.layers import pack_step_params
+    from khmer_ocr_torch.models.ocr_model import pack_decode_params
+    from khmer_ocr_torch.ops.kernels import decode_loop as K3
+    from khmer_ocr_torch.ops.kernels import decode_step as K2
+    from khmer_ocr_torch.ops.kernels import geometry
+
+    bf = torch.bfloat16
+    d, heads, f, n_layers, vocab = cfg.emb_dim, cfg.num_heads, cfg.dec_ffn_dim, cfg.dec_layers, cfg.vocab_size
+    w32 = K2.layer_weights(pack_step_params(state["dec"]["layers"][0]))
+    w16 = K2.layer_weights(pack_step_params(cast_params(state["dec"]["layers"][0], bf)))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k2_rows, k2_worst, cache_len, w, lanes = [], 0.0, 256, 64, 3
+    for n_img, tm in ((1, 256), (8, 256), (64, 256), (1, 4096), (8, 4096), (64, 4096)):
+        pos = w - 1
+        x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w)
+        x16, sk16, sv16, mk16, mv16 = (t.to(bf) for t in (x, sk, sv, mk, mv))
+        a_k, a_v, p_k, p_v = sk16.clone(), sv16.clone(), sk16.clone(), sv16.clone()
+        kw = dict(num_heads=heads, window=w, lanes=lanes)
+        out = K2.decoder_layer_step(w16, x16, pos, a_k, a_v, mk16, mv16, mvf, lin, **kw)
+        ref = K2.decoder_layer_step_plain(w16, x16, pos, p_k, p_v, mk16, mv16, mvf, lin, **kw)
+        torch.cuda.synchronize()
+        err = max((out.float() - ref.float()).abs().max().item(),
+                  (a_k[:, pos].float() - p_k[:, pos].float()).abs().max().item(),
+                  (a_v[:, pos].float() - p_v[:, pos].float()).abs().max().item())
+        tol = max(bf16_tol(ref), bf16_tol(p_k[:, pos]), bf16_tol(p_v[:, pos]))
+        keep = torch.ones(cache_len, dtype=torch.bool, device="cuda")
+        keep[pos] = False
+        untouched = torch.equal(a_k[:, keep], sk16[:, keep]) and torch.equal(a_v[:, keep], sv16[:, keep])
+        shape = f"{n_img}x{lanes} w={w} Tm={tm}"
+        if not (err <= tol and untouched and bool(torch.isfinite(out.float()).all())):
+            fail(f"bf16 K2 {shape}: max|diff| {err:.3e} (tol {tol:.3e}), untouched slots identical: {untouched}")
+        k2_worst = max(k2_worst, err)
+        ms16 = graph_ms(torch, lambda: K2.decoder_layer_step(w16, x16, pos, a_k, a_v, mk16, mv16, mvf, lin, **kw))
+        f_k, f_v = sk.clone(), sv.clone()
+        ms32 = graph_ms(torch, lambda: K2.decoder_layer_step(w32, x, pos, f_k, f_v, mk, mv, mvf, lin, **kw))
+        plain_ms = cuda_ms(torch, lambda: K2.decoder_layer_step_plain(w16, x16, pos, p_k, p_v, mk16, mv16, mvf, lin,
+                                                                      **kw), 2)
+        bms, by = bound_ms(*k2_typed_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lin, w16, 2), 2)
+        b32, _ = bound_ms(*k2_typed_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lin, w32, 4))
+        k2_rows.append(dict(shape=shape, max_abs_err=err, tol=tol, ms=ms16, f32_ms=ms32, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bms, bound_by=by, f32_bound_ms=b32))
+        print(f"[bf16] K2 {shape:20s}: max|kernel - plain bf16| {err:.2e} (tol {tol:.2e}), untouched slots "
+              f"identical; bf16 {ms16:.4f} ms against float32 {ms32:.4f} ms on the same inputs "
+              f"({ms32 / ms16:.2f}x), plain bf16 {plain_ms:.3f} ms; bound {bms:.4f} ms ({by}; float32's {b32:.4f}), "
+              f"{bms / ms16:.2%} of roofline")
+        del x, sk, sv, mk, mv, x16, sk16, sv16, mk16, mv16, a_k, a_v, p_k, p_v, f_k, f_v
+
+    layer_numel = layer_numels(pack_decode_params(state)["dec"]["layers_kernel"][0])
+    resident = {}
+    for k in (3, 4):  # in bf16 the self caches of beam 4 fit on chip too (geometry.k3_smem_bytes)
+        vp = geometry.k3_vocab_cols(vocab, heads, 8)
+        _, on_chip, tc = geometry.k3_geometry(k, d, heads, f, 64, vocab, n_layers, 128, 2)
+        resident[k] = (on_chip, K3.resident_clusters(k, d, heads, f, 64, vp, n_layers, on_chip, tc, bf))
+    print("[bf16] K3's clusters the card holds at once in bf16 (Tm=128, max_len 64): " + "; ".join(
+        f"beam {k}: {n} with the self caches {'on chip' if oc else 'in global memory'}" for k, (oc, n) in
+        resident.items()))
+    set_parity_mode()
+    first_step = k3_bf16_first_step(torch, cast_params(state, bf), cfg)
+    k3_rows, k3_worst, k3_gaps = [], 0.0, []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sharp32 = {**state, "dec": {**state["dec"], "out": {**state["dec"]["out"],
+                                                         "w": state["dec"]["out"]["w"] * SHARPEN}}}
+    sharp = cast_params(sharp32, bf)
+    for n_img in (8, 64):
+        tm, k, ml = 128, 3, 64
+        memory = torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.5
+        valid_len = torch.randint(1, tm + 1, (n_img,), device="cuda", generator=gen)
+        pad = torch.arange(tm, device="cuda")[None, :] >= valid_len[:, None]
+        m16 = memory.to(bf)
+        dec = DecodeConfig(beam_width=k, max_len=ml)
+        shape = f"{n_img}x{k} Tm={tm} max_len={ml}"
+        with torch.inference_mode():
+            ref, plain_ms = timed(torch, lambda: K3.fused_beam_decode_plain(sharp, m16, pad, cfg, dec,
+                                                                            return_scores=True))
+            got = K3.fused_beam_decode_kernel(sharp, m16, pad, cfg, dec, return_scores=True)
+            err, n_diff, gaps = k3_bf16_agree(torch, f"seeded, head x{SHARPEN:g}, {shape}", sharp, cfg, m16, pad, got,
+                                              ref, n_img, BF16_NEAR_TIE, BF16_NEAR_TIE)
+            tok32, _ = K3.fused_beam_decode_kernel(sharp32, memory, pad, cfg, dec, return_scores=True)
+            same32 = sum(bool(torch.equal(got[0][i], tok32[i])) for i in range(n_img))
+            ms16 = cuda_ms(torch, lambda: K3.fused_beam_decode_kernel(sharp, m16, pad, cfg, dec), 3)
+            ms32 = cuda_ms(torch, lambda: K3.fused_beam_decode_kernel(sharp32, memory, pad, cfg, dec), 3)
+            host16 = cuda_ms(torch, lambda: beam_decode(sharp, m16, pad, cfg, dataclasses.replace(dec, mega_mode="0")),
+                             2)
+        k3_worst, k3_gaps = max(k3_worst, err), k3_gaps + gaps
+        _, on_chip, _ = geometry.k3_geometry(k, d, heads, f, ml, vocab, n_layers, tm, 2)
+        nbytes, ops = k3_cost(n_img, k, d, f, heads, ml, tm, int(valid_len.sum()), n_layers, vocab, *layer_numel, 2)
+        bms, by = bound_ms(nbytes, ops, 2)
+        k3_rows.append(dict(shape=shape, route="on chip" if on_chip else "global", max_abs_err=err, ms=ms16,
+                            f32_ms=ms32, plain_ms=plain_ms, host_loop_ms=host16, library_ms=None, bound_ms=bms,
+                            bound_by=by, images_differing=n_diff, exempt_gaps=gaps, images_equal_f32=same32))
+        print(f"[bf16] K3 {shape}: self caches {'on chip' if on_chip else 'global'}; with the head x{SHARPEN:g}, "
+              f"tokens equal the plain bf16 version but {n_diff} near-ties (gaps {fmt_gaps(gaps)}), answer scores "
+              f"max|diff| {err:.2e}; {same32}/{n_img} images token-equal to the float32 kernel's; bf16 {ms16:.3f} ms "
+              f"against float32 {ms32:.3f} ms, plain {plain_ms:.1f} ms, host-loop bf16 {host16:.1f} ms; bound {bms:.4f} ms ({by}), {bms / ms16:.2%} of roofline")
+
+    assets = ROOT / "khmer_ocr_torch" / "assets"
+    meta = json.loads((assets / "real_lines.json").read_text())
+    lines = [line for line, _ in real_samples(len(meta["texts"]))]
+    bw, max_len, bs = (meta["recipe"][k] for k in ("beam_width", "max_len", "batch_size"))
+    names = [f"line_{i}" for i in range(len(lines))]
+    preds = {"float32": Predictor(model_path=FLAGSHIP),
+             "bfloat16": Predictor(model_path=FLAGSHIP, config=OCRConfig(
+                 runtime=RuntimeConfig(compute_dtype="bfloat16", matmul_precision="default")))}
+    real_k3 = k3_bf16_real(torch, preds["bfloat16"], lines, bw, bs, max_len)
+    k3_worst, k3_gaps = max(k3_worst, real_k3["max_abs_err"]), k3_gaps + real_k3["exempt_gaps"]
+    real, launches = {}, {}
+    for mode in ("k2", "k3"):
+        for dt, pred in preds.items():
+            with MegaDecode() if mode == "k3" else contextlib.nullcontext():
+                pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
+                rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
+            c.update(k2_bf16=K2.bf16_launches)
+            strings = [pred.tokenizer.decode(r) for r in rows]
+            res = score(names, meta["texts"], strings)
+            ref = meta["strings"] if dt == "float32" else meta["bf16_strings"]
+            equal = sum(a == b for a, b in zip(strings, ref))
+            real[f"{dt}_{mode}"] = dict(lines_per_s=len(lines) / wall, ms=wall * 1e3, mean_cer=res.mean_cer,
+                                        exact_match=res.exact_match_accuracy, equal_to_jax=equal, **c)
+            print(f"[bf16] flagship {dt}, {'KHMER_OCR_MEGA_DECODE=1' if mode == 'k3' else 'host loop'}: "
+                  f"{len(lines)} lines in {wall * 1e3:.1f} ms ({len(lines) / wall:.1f} lines/s) on {smi}; "
+                  f"{equal}/{len(lines)} strings equal to the JAX package's {dt}; mean CER {res.mean_cer:.6f} "
+                  f"(JAX {dt}: {meta['mean_cer' if dt == 'float32' else 'bf16_mean_cer']:.6f}); launches K1 "
+                  f"{c['k1']}, K2 {c['k2']} (bf16 {c['k2_bf16']}), K3 {c['k3']}")
+            if dt == "bfloat16":
+                launches[mode] = c
+                if not res.mean_cer <= meta["bf16_mean_cer"] + 0.005:
+                    fail(f"bf16 flagship {mode}: mean CER {res.mean_cer:.6f} > the JAX package's bf16 "
+                         f"{meta['bf16_mean_cer']:.6f} + 0.005")
+                if c["k2_bf16"] != c["k2"] or c[mode] == 0:
+                    fail(f"bf16 flagship {mode}: launches {c} (every K2 launch bf16, {mode.upper()} launched)")
+    del preds
+    torch.cuda.empty_cache()
+    set_parity_mode()  # the bf16 Predictor's "default" precision turned TF32 on for the process
+    print(f"[bf16] K3 against its plain bf16 version: {len(k3_gaps)} image(s) exempt as near-ties in all, gaps "
+          f"{fmt_gaps(k3_gaps)} (BF16_NEAR_TIE {BF16_NEAR_TIE})")
+    return dict(k2_rows=k2_rows, k2_err=k2_worst, k3_rows=k3_rows, k3_err=k3_worst, real=real, k3_resident=resident,
+                k3_real=real_k3, k3_exempt_gaps=k3_gaps, k3_first_step=first_step, k2_launches=launches["k2"]["k2_bf16"],
+                k3_launches=launches["k3"]["k3"])
+
+
+def phase_head(torch, state, cfg, smi):
+    """The decode head fused into K2's last launch. (i) The kernel with
+    ``head`` against its plain version, float32 and bf16, 1 and 8 images x 3
+    lanes, Tm 256: the layer output as K2 (1e-4; two bf16 steps), the
+    log-probs within 1e-4 x max(1, |ref|) in float32 and two bf16 steps of the
+    largest |log-prob| in bf16 (a flipped last bit of a rounded logit), the
+    padded columns NEG_INF; device time with and without the head. (ii) The
+    flagship's first 18 rendered lines at beam 3 with KHMER_OCR_FUSED_HEAD=1:
+    tokens equal to those without it, near-ties excepted, launches counted."""
+    from khmer_ocr_torch.infer.predictor import Predictor, cast_params
+    from khmer_ocr_torch.models.layers import pack_step_params
+    from khmer_ocr_torch.ops.kernels import decode_step as K2
+
+    d, heads, f = cfg.emb_dim, cfg.num_heads, cfg.dec_ffn_dim
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows, worst, cache_len, w, lanes = [], 0.0, 256, 64, 3
+    for dt in ("float32", "bfloat16"):
+        cdt = getattr(torch, dt)
+        layer = state["dec"]["layers"][0] if dt == "float32" else cast_params(state["dec"]["layers"][0], cdt)
+        wt = K2.layer_weights(pack_step_params(layer))
+        head = K2.head_weights({k: v.to(cdt) for k, v in state["dec"]["out"].items()})
+        for n_img, tm in ((1, 256), (8, 256)):
+            pos = w - 1
+            x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w, cdt)
+            kw = dict(num_heads=heads, window=w, lanes=lanes)
+            a_k, a_v, p_k, p_v = sk.clone(), sv.clone(), sk.clone(), sv.clone()
+            out, logp = K2.decoder_layer_step(wt, x, pos, a_k, a_v, mk, mv, mvf, lin, head=head, **kw)
+            ref, ref_lp = K2.decoder_layer_step_plain(wt, x, pos, p_k, p_v, mk, mv, mvf, lin, head=head, **kw)
+            torch.cuda.synchronize()
+            v = head[2]
+            x_err = (out.float() - ref.float()).abs().max().item()
+            lp_err = (logp[:, :v] - ref_lp[:, :v]).abs().max().item()
+            if dt == "float32":
+                x_tol, lp_tol = TOL, TOL * max(1.0, ref_lp[:, :v].abs().max().item())
+            else:
+                x_tol, lp_tol = bf16_tol(ref), bf16_tol(ref_lp[:, :v])
+            shape = f"{dt} {n_img}x{lanes} w={w} Tm={tm}"
+            padded = bool((logp[:, v:] == -1e30).all())
+            if not (x_err <= x_tol and lp_err <= lp_tol and padded and bool(torch.isfinite(logp[:, :v]).all())):
+                fail(f"head K2 {shape}: layer max|diff| {x_err:.3e} (tol {x_tol:.3e}), log-probs {lp_err:.3e} "
+                     f"(tol {lp_tol:.3e}), padded columns NEG_INF: {padded}")
+            worst = max(worst, x_err if dt == "float32" else 0.0, lp_err if dt == "float32" else 0.0)
+            ms = graph_ms(torch, lambda: K2.decoder_layer_step(wt, x, pos, a_k, a_v, mk, mv, mvf, lin, head=head,
+                                                               **kw))
+            ms_no = graph_ms(torch, lambda: K2.decoder_layer_step(wt, x, pos, a_k, a_v, mk, mv, mvf, lin, **kw))
+            plain_ms = cuda_ms(torch, lambda: K2.decoder_layer_step_plain(wt, x, pos, p_k, p_v, mk, mv, mvf, lin,
+                                                                          head=head, **kw), 2)
+            bms, by = bound_ms(*k2_typed_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lin, wt,
+                                              cdt.itemsize, head), cdt.itemsize)
+            rows.append(dict(shape=shape, max_abs_err=max(x_err, lp_err), logp_err=lp_err, ms=ms, no_head_ms=ms_no,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+            print(f"[head] K2 {shape:26s}: layer max|diff| {x_err:.2e}, log-probs {lp_err:.2e} (tol {lp_tol:.2e}), "
+                  f"padded columns NEG_INF; with the head {ms:.4f} ms, without {ms_no:.4f} ms, plain {plain_ms:.3f} "
+                  f"ms; bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
+
+    lines = [line for line, _ in real_samples(SERVE_LINES)]
+    pred = Predictor(model_path=FLAGSHIP)
+    saved = os.environ.get("KHMER_OCR_FUSED_HEAD")
+    runs = {}
+    try:
+        for mode in ("0", "1"):
+            os.environ["KHMER_OCR_FUSED_HEAD"] = mode
+            pred.predict_batch_tokens(lines, beam_width=3, batch_size=8, max_len=64)  # warm-up
+            h0 = pred.head_batches
+            rows_, c, wall = counted_run(torch, pred, lines, 3, 8, 64)
+            c.update(head=K2.head_launches, head_batches=pred.head_batches - h0)
+            runs[mode] = ([strip(r) for r in rows_], c, wall)
+    finally:
+        if saved is None:
+            os.environ.pop("KHMER_OCR_FUSED_HEAD", None)
+        else:
+            os.environ["KHMER_OCR_FUSED_HEAD"] = saved
+    (off, c0, w0), (on, c1, w1) = runs["0"], runs["1"]
+    n_diff = check_tokens(torch, pred, lines, off, on, "KHMER_OCR_FUSED_HEAD=1 vs without", tag="head")
+    print(f"[head] {SERVE_LINES} flagship lines, beam 3, max_len 64: with the head {w1 * 1e3:.1f} ms (K2 {c1['k2']} "
+          f"launches, {c1['head']} with the head, {c1['head_batches']} batches), without {w0 * 1e3:.1f} ms (K2 "
+          f"{c0['k2']}, {c0['head']} with the head); {SERVE_LINES - n_diff}/{SERVE_LINES} lines token-equal on {smi}")
+    if c1["head"] == 0 or c0["head"] or c1["head"] != c1["steps"]:
+        fail(f"head: launches {c1} with the head, {c0} without (one head launch a host-loop step expected)")
+    return dict(rows=rows, err=worst, launches=c1["head"], on_ms=w1 * 1e3, off_ms=w0 * 1e3, n_diff=n_diff)
+
+
+def tp_local(torch, lw: dict, m: int, n_model: int, d: int) -> dict:
+    """Model rank m's part of a layer's kernel operands (parallel/placement.py's
+    cut: q, k, v and cross q columns, the out-projections' rows, lin1's
+    columns and lin2's rows, with the biases of the split columns)."""
+    da, fl = d // n_model, lw["l1_w"].shape[1] // n_model
+    cols = lambda t, n: t[..., m * n:(m + 1) * n]  # noqa: E731
+    qkv = lambda t: torch.cat([cols(t[..., j * d:(j + 1) * d], da) for j in range(3)], dim=-1)  # noqa: E731
+    out = dict(lw)
+    out.update(qkv_w=qkv(lw["qkv_w"]), qkv_b=qkv(lw["qkv_b"]), so_w=lw["so_w"][m * da:(m + 1) * da],
+               cq_w=cols(lw["cq_w"], da), cq_b=cols(lw["cq_b"], da), co_w=lw["co_w"][m * da:(m + 1) * da],
+               l1_w=cols(lw["l1_w"], fl), l1_b=cols(lw["l1_b"], fl), l2_w=lw["l2_w"][m * fl:(m + 1) * fl])
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def tp_block_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lineage, local, itemsize):
+    """Bytes and operations of one rank's four block launches of a layer
+    under a model group of TP_WORLD: its weights, its heads' columns of the
+    cache rows the lineage reaches and of the valid memory rows, the cache
+    slot written (``itemsize`` bytes an element); the vectors, the (B, D)
+    float32 residual read and written by each launch, the partial sums read
+    by three and written by three, mem_valid and the lineage (4 bytes);
+    one TP_WORLD-th of K2's operations."""
+    from khmer_ocr_torch.ops.kernels.decode_step import MATRIX_FIELDS
+
+    b, da = n_img * lanes, d // TP_WORLD
+    pairs = b * pos
+    if pos and lineage is not None:
+        src = lineage[:, :pos].long() + lanes * (torch.arange(b, device=lineage.device)[:, None] // lanes)
+        pairs = (src * pos + torch.arange(pos, device=lineage.device)[None, :]).unique().numel()
+    mat = sum(v.numel() for k, v in local.items() if k in MATRIX_FIELDS)
+    vec = sum(v.numel() for k, v in local.items() if k not in MATRIX_FIELDS)
+    nbytes = itemsize * (mat + 2 * pairs * da + 2 * tm_valid * da + 2 * b * da) + 4 * (
+        vec + 4 * 2 * b * d + 6 * b * d + n_img * tm + (0 if lineage is None else b * pos))
+    _, ops = k2_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lineage, 0)
+    return nbytes, ops / TP_WORLD
+
+
+def phase_tp_blocks(torch, state, cfg):
+    """K2's tensor-parallel blocks on one card, both ranks' parts in this
+    process: each block kernel against its plain version (the residual, the
+    partial sum and the written cache slot within 1e-4, two bf16 steps in
+    bf16), and the self, cross and FFN blocks of the two parts chained, each
+    pair of partial sums added, into the unsplit K2 step (1e-4; two bf16
+    steps). 8 images x 3 lanes for a rank of a model group of 2 (4 heads,
+    F/2 = 768), Tm 256 and 4096: at 4096 the cross block runs two CTAs a
+    head (k2_split) and is also checked and timed with one. Device times
+    of rank 0's launches from CUDA graphs."""
+    from khmer_ocr_torch.infer.predictor import cast_params
+    from khmer_ocr_torch.models.layers import pack_step_params
+    from khmer_ocr_torch.ops.kernels import decode_step as K2
+    from khmer_ocr_torch.ops.kernels import geometry
+
+    d, heads = cfg.emb_dim, cfg.num_heads
+    hl, da = heads // TP_WORLD, d // TP_WORLD
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows, worst, cache_len, w, lanes, n_img = {}, 0.0, 256, 64, 3, 8
+    pos = w - 1
+    kinds = (("self", None), ("cross", ("so_b", "ln1_s", "ln1_b")), ("ffn", ("co_b", "ln2_s", "ln2_b")),
+             ("finish", ("l2_b", "ln3_s", "ln3_b")))
+    for dt in ("float32", "bfloat16"):
+        cdt = getattr(torch, dt)
+        layer = state["dec"]["layers"][0] if dt == "float32" else cast_params(state["dec"]["layers"][0], cdt)
+        full = K2.layer_weights(pack_step_params(layer))
+        parts = [tp_local(torch, full, m, TP_WORLD, d) for m in range(TP_WORLD)]
+        for tm in (256, 4096):
+            x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w, cdt)
+            ref_k, ref_v = sk.clone(), sv.clone()
+            ref = K2.decoder_layer_step(full, x, pos, ref_k, ref_v, mk, mv, mvf, lin, num_heads=heads, window=w,
+                                        lanes=lanes)
+            cols = [slice(m * da, (m + 1) * da) for m in range(TP_WORLD)]
+            caches = [(sk[..., c].contiguous(), sv[..., c].contiguous()) for c in cols]
+            mems = [(mk[..., c].contiguous(), mv[..., c].contiguous()) for c in cols]
+            plain_caches = [(a.clone(), b.clone()) for a, b in caches]
+            kw = dict(num_heads=hl, window=w, lanes=lanes, dtype=cdt)
+            split = geometry.k2_geometry(n_img, lanes, hl, tm)[2] // hl
+            err, times, plain_times, other = 0.0, {}, {}, {}
+            xr, part = x.float(), None
+            for kind, pro in kinds:
+                prologue = None if pro is None else tuple(full[k] for k in pro)
+                outs = []
+                for m in range(TP_WORLD):
+                    def call(fn, cache=caches[m], m=m, **extra):
+                        return fn(kind, parts[m], xr, part, pos, cache[0], cache[1], mems[m][0], mems[m][1], mvf,
+                                  lin, prologue=prologue, round_x=kind == "finish", **kw, **extra)
+
+                    got = call(K2.decoder_block)
+                    want = call(K2.decoder_block_plain, plain_caches[m])
+                    checks = [got]
+                    if kind == "cross" and split == 2:  # the cross block with one CTA a head too
+                        checks.append(call(K2.decoder_block_kernel, split=1))
+                    torch.cuda.synchronize()
+                    for g in checks:
+                        tol = TOL if dt == "float32" else bf16_tol(want[0])
+                        e = (g[0] - want[0]).abs().max().item()
+                        if g[1] is not None:
+                            tol = max(tol, TOL * max(1.0, want[1].abs().max().item()) if dt == "float32"
+                                      else bf16_tol(want[1]))
+                            e = max(e, (g[1] - want[1]).abs().max().item())
+                        if kind == "self":  # the local heads' columns of cache slot pos
+                            cc, pc = caches[m], plain_caches[m]
+                            e = max(e, (cc[0][:, pos].float() - pc[0][:, pos].float()).abs().max().item(),
+                                    (cc[1][:, pos].float() - pc[1][:, pos].float()).abs().max().item())
+                        if not e <= tol:
+                            fail(f"tensor_parallel K2 block {kind} {dt} Tm={tm} rank {m}: max|kernel - plain| "
+                                 f"{e:.3e} (tol {tol:.3e})")
+                        err = max(err, e)
+                    if m == 0:
+                        times[kind] = graph_ms(torch, lambda: call(K2.decoder_block))
+                        plain_times[kind] = cuda_ms(torch, lambda: call(K2.decoder_block_plain, plain_caches[0]), 2)
+                        if len(checks) > 1:
+                            other[kind] = graph_ms(torch, lambda: call(K2.decoder_block_kernel, split=1))
+                    outs.append(got)
+                xr = outs[0][0]
+                if kind != "finish":  # the all-reduce of the ranks' partial sums, in rank order
+                    part = outs[0][1].clone()
+                    for o in outs[1:]:
+                        part += o[1]
+            chain = xr.to(cdt)
+            tol = TOL if dt == "float32" else bf16_tol(ref)
+            c_err = (chain.float() - ref.float()).abs().max().item()
+            k_err = max((torch.cat([c[0][:, pos] for c in caches], -1).float() - ref_k[:, pos].float()).abs().max()
+                        .item(), (torch.cat([c[1][:, pos] for c in caches], -1).float() - ref_v[:, pos].float()).abs()
+                        .max().item())
+            if not (c_err <= tol and k_err <= tol):
+                fail(f"tensor_parallel {dt} Tm={tm}: the chained blocks of {TP_WORLD} parts against the unsplit K2 "
+                     f"step: layer {c_err:.3e}, cache slot {k_err:.3e} (tol {tol:.3e})")
+            if dt == "float32":
+                worst = max(worst, err, c_err)
+            bms, by = bound_ms(*tp_block_cost(torch, n_img, lanes, d, cfg.dec_ffn_dim, heads, pos, tm, tm_valid, lin,
+                                              parts[0], cdt.itemsize), cdt.itemsize)
+            ms, plain_ms = sum(times.values()), sum(plain_times.values())
+            shape = f"{dt} {n_img}x{lanes} w={w} Tm={tm}, rank 0 of {TP_WORLD}"
+            rows[shape] = dict(shape=shape, max_abs_err=max(err, c_err), chain_err=c_err, ms=ms, block_ms=times,
+                               cross_ctas_per_head=split, cross_other_split_ms=other.get("cross"), plain_ms=plain_ms,
+                               library_ms=None, bound_ms=bms, bound_by=by)
+            also = "" if not other else f" (the cross block with one CTA a head {other['cross']:.4f} ms)"
+            print(f"[tensor_parallel] K2 blocks {shape}, {hl} heads a rank, cross block {split} CTA(s) a head: each "
+                  f"block within {err:.2e} of its plain version; the two ranks' blocks chained against the unsplit K2 "
+                  f"step: layer {c_err:.2e}, cache slot {k_err:.2e}; rank 0's launches "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+                  + f"{also} ({ms:.4f} ms a layer without the all-reduces), plain {plain_ms:.3f} ms; bound "
+                  f"{bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
+            del x, sk, sv, mk, mv, caches, mems, plain_caches
+    return rows, worst
+
+
+def tp_rank(rank: int, world: int, tmp: Path) -> int:
+    """A rank of phase_tensor_parallel's model group (gloo, CUDA tensors, the
+    one card): its part of the flagship's weights, forward_train's logits of
+    the 8 lines of parallel_batch(), and the first 18 rendered lines at beam 3
+    through infer_batch, its K2 block launches counted."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from khmer_ocr_torch.config import DecodeConfig
+    from khmer_ocr_torch.convert.from_jax import params_from_jax
+    from khmer_ocr_torch.infer.predictor import infer_batch, load_weights, set_parity_mode
+    from khmer_ocr_torch.models.ocr_model import forward_train
+    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm
+    from khmer_ocr_torch.ops.lines import device_chunk, u8_to_unit, unit_normalize
+    from khmer_ocr_torch.parallel.mesh import make_mesh, shard_params
+    from khmer_ocr_torch.preprocess import Preprocessor
+    from khmer_ocr_torch.tokenizer import Tokenizer
+
+    set_parity_mode()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank, world_size=world)
+    mesh = make_mesh(1, world)
+    params, stats, cfg = load_weights(FLAGSHIP)
+    state = params_from_jax(shard_params(params, mesh.model_rank, world), stats, cfg, device="cuda",
+                            model_group=mesh.model_group)
+    batch = parallel_batch()
+    with torch.inference_mode():
+        chunks = device_chunk(unit_normalize(u8_to_unit(torch.from_numpy(batch["lines"]).cuda())), (100, 84))
+        logits, _ = forward_train(state, None, chunks, torch.from_numpy(batch["chunk_counts"]).cuda(),
+                                  torch.from_numpy(batch["labels"][:, :-1]).long().cuda(), cfg, train=False,
+                                  model_group=mesh.model_group)
+    np.save(tmp / f"tp_logits{rank}.npy", logits.float().cpu().numpy())
+    tok = Tokenizer()
+    dec = DecodeConfig(beam_width=3, max_len=64, sos_idx=tok.sos_idx, eos_idx=tok.eos_idx, pad_idx=tok.pad_idx)
+    lines = [line for line, _ in real_samples(SERVE_LINES)]
+    batches = list(Preprocessor().iter_batches(lines, max_batch=8))
+
+    def serve():
+        rows = [None] * len(lines)
+        for b in batches:
+            out = infer_batch(state, torch.from_numpy(b.lines).cuda(), torch.from_numpy(b.chunk_counts).cuda(), cfg,
+                              dec, (100, 84), model_group=mesh.model_group)
+            for i, r in zip(b.indices, out.cpu().numpy()):
+                rows[i] = strip(r)
+        return rows
+
+    serve()  # warm-up
+    dist.barrier()
+    torch.cuda.synchronize()
+    for mod in (lstm, decode_step, decode_loop):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    rows = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"k1": lstm.launches, "k2": decode_step.launches, "blocks": decode_step.block_launches,
+              "k3": decode_loop.launches}
+    (tmp / f"tp{rank}.json").write_text(json.dumps({"tokens": rows, "counts": counts, "serve_ms": wall * 1e3}))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tensor_parallel(torch, state, cfg, smi):
+    """The model axis on the card: K2's blocks against their plain versions
+    and chained into the unsplit step (phase_tp_blocks); then a model group
+    of 2 rank processes sharing the card over gloo (NCCL refuses two ranks on
+    one device), each holding its part of the flagship's weights (4 heads,
+    F/2 = 768): forward_train's logits within 2e-4 / 1e-3 (the JAX package's
+    own bound) of one process's, and 18 rendered lines at beam 3 through
+    infer_batch, K2's three blocks a layer and an all-reduce after each, the
+    tokens equal to one process's on both ranks, near-ties excepted. A
+    numerics check, not a scaling figure."""
+    import numpy as np
+
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.models.ocr_model import forward_train
+    from khmer_ocr_torch.ops.lines import device_chunk, u8_to_unit, unit_normalize
+
+    rows, worst = phase_tp_blocks(torch, state, cfg)
+    pred = Predictor(model_path=FLAGSHIP)
+    batch = parallel_batch()
+    with torch.inference_mode():
+        chunks = device_chunk(unit_normalize(u8_to_unit(torch.from_numpy(batch["lines"]).cuda())), (100, 84))
+        ref_logits, _ = forward_train(pred.params, None, chunks, torch.from_numpy(batch["chunk_counts"]).cuda(),
+                                      torch.from_numpy(batch["labels"][:, :-1]).long().cuda(), pred.model_cfg,
+                                      train=False)
+    ref_logits = ref_logits.float().cpu().numpy()
+    lines = [line for line, _ in real_samples(SERVE_LINES)]
+    pred.predict_batch_tokens(lines, beam_width=3, batch_size=8, max_len=64)  # warm-up
+    one_rows, one_counts, one_wall = counted_run(torch, pred, lines, 3, 8, 64)
+    one = [strip(r) for r in one_rows]
+    with tempfile_dir() as tmp:
+        logs = [tmp / f"tp{r}.log" for r in range(TP_WORLD)]
+        t0 = time.perf_counter()
+        procs = []
+        for r, log in enumerate(logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+                                               str(TP_WORLD), str(tmp)], stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT))
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        ranks_s = time.perf_counter() - t0
+        if rcs != [0] * TP_WORLD:
+            for log in logs:
+                print(log.read_text()[-3000:])
+            fail(f"tensor_parallel: the ranks exited {rcs}")
+        metas = [json.loads((tmp / f"tp{r}.json").read_text()) for r in range(TP_WORLD)]
+        logits = [np.load(tmp / f"tp_logits{r}.npy") for r in range(TP_WORLD)]
+    l_err = max(float(np.abs(lg - ref_logits).max()) for lg in logits)
+    close = all(np.allclose(lg, ref_logits, atol=2e-4, rtol=1e-3) for lg in logits)
+    n_diff = [check_tokens(torch, pred, lines, one, m["tokens"], f"tensor_parallel rank {r} vs one process",
+                           tag="tensor_parallel") for r, m in enumerate(metas)]
+    counts = [m["counts"] for m in metas]
+    print(f"[tensor_parallel] {TP_WORLD} ranks over gloo on one card, the flagship's weights split by heads: "
+          f"forward_train logits of 8 lines max|diff| {l_err:.2e} against one process (within 2e-4 / 1e-3: {close}); "
+          f"{SERVE_LINES} lines at beam 3: tokens equal to one process's but {n_diff} near-ties; launches per rank "
+          f"K2 blocks {[c['blocks'] for c in counts]}, K2 {[c['k2'] for c in counts]}, K1 {[c['k1'] for c in counts]}, "
+          f"K3 {[c['k3'] for c in counts]} (one process: K2 {one_counts['k2']}); "
+          f"{[round(m['serve_ms'], 1) for m in metas]} ms per rank, {one_wall * 1e3:.1f} ms for one process; the "
+          f"ranks' processes {ranks_s:.1f} s in all (a numerics check, not a scaling figure) on {smi}")
+    if not close:
+        fail(f"tensor_parallel: forward_train logits differ from one process's by {l_err:.3e}")
+    if any(c["blocks"] == 0 or c["k2"] or c["k3"] or c["k1"] == 0 for c in counts):
+        fail(f"tensor_parallel: launches {counts} (K2's blocks and K1 expected, no whole-layer K2, no K3)")
+    del pred
+    torch.cuda.empty_cache()
+    return dict(block_rows=rows, block_err=worst, logits_err=l_err, n_diff=n_diff,
+                block_launches=[c["blocks"] for c in counts], k1=[c["k1"] for c in counts],
+                serve_ms=[m["serve_ms"] for m in metas], one_ms=one_wall * 1e3)
+
+
+def phase_host(torch, smi):
+    """The host input path on the card's machine: whether the native loader
+    (native/imageio.cpp, g++ with libpng and libjpeg) builds here, and where
+    it does, its pixels against PIL's on the 64 rendered lines written as
+    PNG; the Preprocessor's lines/s on 256 PNG files at host_workers 1 and
+    8 (batches of 64, the better of two passes); Predictor.warmup's seconds
+    on the flagship, and the first request (8 lines, beam 3) after it against
+    a fresh Predictor's first request."""
+    import numpy as np
+    from PIL import Image
+
+    from khmer_ocr_torch.config import RuntimeConfig
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.native import imageio as native
+    from khmer_ocr_torch.preprocess import Preprocessor
+
+    t0 = time.perf_counter()
+    lib = native.load_imageio_library()
+    build_s = time.perf_counter() - t0
+    route = "the native loader" if lib is not None else "PIL (the native loader did not build)"
+    print(f"[host] native loader: {'built and loaded' if lib is not None else 'unavailable'} in {build_s:.2f} s"
+          + ("" if lib is not None else f": {(native.unavailable_reason() or '')[:400]}"))
+    samples = real_samples(64)
+    out = {"native": lib is not None}
+    with tempfile_dir() as tmp:
+        paths = []
+        for i, (line, _) in enumerate(samples):
+            p = tmp / f"line{i}.png"
+            Image.fromarray(line).save(p)
+            paths.append(p)
+        if lib is not None:
+            bad = [i for i, p in enumerate(paths) if not np.array_equal(native.load_resize_gray(p), np.asarray(
+                Image.open(p).convert("L").resize((max(50, int(48 * Image.open(p).width / Image.open(p).height)),
+                                                   48), Image.Resampling.BILINEAR)))]
+            print(f"[host] native pixels equal to PIL's on {len(paths) - len(bad)}/{len(paths)} PNG lines")
+            if bad:
+                fail(f"host: the native loader's pixels differ from PIL's on lines {bad}")
+        files = paths * 4
+        for workers in (1, 8):
+            pre = Preprocessor(runtime=RuntimeConfig(host_workers=workers))
+            best = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                n = sum(len(b.indices) for b in pre.iter_batches(files, max_batch=64))
+                best = min(best, time.perf_counter() - t0)
+            out[f"workers{workers}_lines_per_s"] = n / best
+            print(f"[host] Preprocessor, {len(files)} PNG files through {route}, host_workers {workers}: "
+                  f"{best * 1e3:.1f} ms ({n / best:.0f} lines/s)")
+    lines = [line for line, _ in samples[:8]]
+    buckets = tuple(sorted({b.bucket_n for b in Preprocessor().iter_batches(lines, max_batch=8)}))
+    fresh = Predictor(model_path=FLAGSHIP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.predict_batch(lines, beam_width=3, batch_size=8, max_len=64)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    warm = Predictor(model_path=FLAGSHIP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm.warmup(beam_widths=(3,), batch_size=8, chunk_buckets=buckets)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    strings = warm.predict_batch(lines, beam_width=3, batch_size=8, max_len=64)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    same = strings == fresh.predict_batch(lines, beam_width=3, batch_size=8, max_len=64)
+    print(f"[host] warmup(beam 3, batch 8, buckets {buckets}): {warmup_s:.2f} s; the first request of 8 lines after "
+          f"it {first_s * 1e3:.1f} ms, a fresh Predictor's first request {fresh_s * 1e3:.1f} ms; the same "
+          f"strings: {same} on {smi}")
+    if not same:
+        fail("host: warmup changed the predictions")
+    out.update(warmup_s=warmup_s, first_after_warmup_ms=first_s * 1e3, fresh_first_ms=fresh_s * 1e3)
+    del fresh, warm
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase_parallel's group, started by the phase
         return parallel_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-rank"]:  # a rank of phase_tensor_parallel's model group, started by the phase
+        return tp_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if not (ROOT / "khmer_ocr_torch" / "__init__.py").exists():
         print("khmer_ocr_torch not found next to chip_smoke.py: run it from a checkout of the repository",
               file=sys.stderr)
@@ -2056,6 +2879,19 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel = phase_parallel(torch, smi)
     print(f"[parallel] {json.dumps(parallel)}; the phase took {time.perf_counter() - t0:.1f} s")
+    cfg = ModelConfig()
+    t0 = time.perf_counter()
+    bf16 = phase_bf16(torch, state, cfg, smi)
+    print(f"[bf16] {json.dumps(bf16['real'])}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    head = phase_head(torch, state, cfg, smi)
+    print(f"[head] the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp = phase_tensor_parallel(torch, state, cfg, smi)
+    print(f"[tensor_parallel] the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host = phase_host(torch, smi)
+    print(f"[host] {json.dumps(host)}; the phase took {time.perf_counter() - t0:.1f} s")
 
     main_len = min(k for k in e2e if isinstance(k, int))
     k1_main = next(r for r in k1_rows if r["shape"] == "2x B=8 T=1024")
@@ -2085,11 +2921,35 @@ def main() -> int:
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
               k2_err, k2_main, k2_rows, document_launches=document["pages"]["k2"],
               parallel_serve_launches=parallel["k2_serve"]),
+        # launches: the flagship's bf16 request by the host loop ([bf16]); the library built with STORAGE_BF16
+        entry("decoder_layer_step_bf16", "decoder_layer_step.cu",
+              tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), bf16["k2_launches"],
+              bf16["k2_err"], next(r for r in bf16["k2_rows"] if r["shape"] == "8x3 w=64 Tm=256"), bf16["k2_rows"],
+              storage="bfloat16", f32_ms=next(r for r in bf16["k2_rows"] if r["shape"] == "8x3 w=64 Tm=256")["f32_ms"],
+              mega_request_launches=bf16["real"]["bfloat16_k3"]["k2_bf16"]),
+        # launches: the 18-line request with KHMER_OCR_FUSED_HEAD=1 ([head])
+        entry("decoder_layer_step_head", "decoder_layer_step.cu",
+              tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), head["launches"],
+              head["err"], next(r for r in head["rows"] if r["shape"] == "float32 8x3 w=64 Tm=256"), head["rows"],
+              no_head_ms=next(r for r in head["rows"] if r["shape"] == "float32 8x3 w=64 Tm=256")["no_head_ms"]),
+        # launches: rank 0's in the two-rank model group's 18-line request ([tensor_parallel]); ms: rank 0's self,
+        # cross, FFN and finish launches of one layer at 8 x 3
+        entry("decoder_block", "decoder_block.cu",
+              tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), tp["block_launches"][0],
+              tp["block_err"], tp["block_rows"]["float32 8x3 w=64 Tm=256, rank 0 of 2"], list(tp["block_rows"].values()),
+              rank_launches=tp["block_launches"]),
+
         # launches: the KHMER_OCR_MEGA_DECODE=1 request, K3's path
         entry("fused_beam_decode", "decode_loop.cu", tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"),
               e2e["mega"]["k3"], k3_err, k3_main, k3_rows, host_loop_ms=k3_main["host_loop_ms"],
               ctas_per_cluster=k3_main["ctas_per_cluster"], self_caches=k3_main["route"],
               global_ms=k3_main["global_ms"], resident_clusters=k3_resident),
+        # launches: the flagship's bf16 request with KHMER_OCR_MEGA_DECODE=1 ([bf16])
+        entry("fused_beam_decode_bf16", "decode_loop.cu",
+              tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"), bf16["k3_launches"], bf16["k3_err"],
+              bf16["k3_rows"][0], bf16["k3_rows"], storage="bfloat16", f32_ms=bf16["k3_rows"][0]["f32_ms"],
+              host_loop_ms=bf16["k3_rows"][0]["host_loop_ms"], first_step=bf16["k3_first_step"],
+              flagship_memory=bf16["k3_real"], resident_clusters={k: n for k, (_, n) in bf16["k3_resident"].items()}),
         # launches: the probe's ladder and bisection, K4's path
         entry("smem_probe", "smem_probe.cu", tpu_kernel_site("probe_vmem.py", "try_mb"), k4["launches"],
               k4["max_abs_err"], k4, [], max_bytes=k4["max_bytes"], attribute_bytes=k4["attribute_bytes"],

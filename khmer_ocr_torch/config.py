@@ -2,16 +2,19 @@
 
 The same frozen dataclasses as the JAX package's ``config.py`` (preprocess,
 model, decode, runtime and training settings), so that one set of values describes both
-implementations. Fields that only steered TPU dispatch (mesh axes, grouped
-multi-batch programs, the per-step kernel and decode-head policies) are
-dropped: the port dispatches one bucket batch at a time and always runs its
-CUDA kernels on the card. ``DecodeConfig.mega_mode`` stays: it picks the
-whole-decode beam path, a different route through the decode, and the
-Predictor snapshots it per call from ``KHMER_OCR_MEGA_DECODE``.
+implementations. Fields that only steered TPU dispatch (mesh axis names,
+grouped multi-batch programs and their compile budget, the uint8 and
+whole-line transfer layouts, the per-step kernel policy) are dropped: the
+port dispatches one bucket batch at a time, always ships uint8 lines, and
+always runs its CUDA kernels on the card. ``DecodeConfig.mega_mode`` and
+``head_mode`` stay: they pick the whole-decode beam path and the fused
+decode head, and the Predictor snapshots them per call from
+``KHMER_OCR_MEGA_DECODE`` and ``KHMER_OCR_FUSED_HEAD``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 
@@ -62,6 +65,15 @@ class ModelConfig:
     def dec_ffn_dim(self) -> int:
         return self.emb_dim * 4
 
+    @property
+    def head_dim(self) -> int:
+        if self.emb_dim % self.num_heads:
+            raise ValueError(f"emb_dim {self.emb_dim} is not a multiple of num_heads {self.num_heads}")
+        return self.emb_dim // self.num_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
 
 @dataclass(frozen=True)
 class DecodeConfig:
@@ -75,16 +87,35 @@ class DecodeConfig:
     # Whole-decode beam path (kernel K3, ops/kernels/decode_loop.py): "1" on
     # inside its envelope, any other value off, None reads KHMER_OCR_MEGA_DECODE.
     mega_mode: str | None = None
+    # The decode head fused into the last layer's launch of kernel K2 (beam
+    # only, as in the JAX package): "1" on, any other value off, None reads
+    # KHMER_OCR_FUSED_HEAD.
+    head_mode: str | None = None
 
 
 @dataclass(frozen=True)
 class RuntimeConfig:
-    """Shape buckets: lines pad to a chunk bucket, batches to a batch
-    bucket. The port runs in float32 with TF32 off for matmul and cuDNN
-    (infer/predictor.py::set_parity_mode)."""
+    """Serving settings.
 
+    ``compute_dtype``/``matmul_precision`` trade parity for speed, as in the
+    JAX package: parity mode is "float32" + "highest" (TF32 off for matmul
+    and cuDNN), the speed mode "bfloat16" (the Predictor casts the params,
+    activations and caches follow; the BatchNorm statistics stay float32)
+    with "default" or "high" (TF32 on for the float32 work that remains).
+    Shape buckets: lines pad to a chunk bucket, batches to a batch bucket.
+    Host input: ``host_workers`` threads prepare lines (PIL or the native
+    loader, native/imageio.py); all-file workloads decode through the native
+    loader's batch call into a reused slab ``slab_cap_w`` px wide (wider
+    lines re-decode at full width); ``flush_deadline_ms`` > 0 flushes a
+    partly filled bucket whose oldest line has waited that long."""
+
+    compute_dtype: str = "float32"
+    matmul_precision: str = "highest"
     chunk_buckets: tuple[int, ...] = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
     batch_buckets: tuple[int, ...] = (1, 8, 32, 128, 256)
+    host_workers: int = 8
+    slab_cap_w: int = 2048
+    flush_deadline_ms: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -117,6 +148,9 @@ class OCRConfig:
     decode: DecodeConfig = field(default_factory=DecodeConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "OCRConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def backbone_for_path(model_path: str) -> str:

@@ -16,7 +16,10 @@ and never imports JAX:
     ``trainable_from_jax`` makes the training state instead: the same
     params without the statistics, and the statistics apart.
     ``params_to_jax`` is the inverse of both: a model trained by the port
-    loads into the JAX package.
+    loads into the JAX package. ``params_from_jax(..., model_group=)``
+    takes one rank's part of a tree cut by
+    ``parallel/placement.py::shard_params`` for a tensor-parallel model
+    group and cuts the biases of the split columns to match.
   * ``save_npz``/``load_npz`` carry such a tree in one compressed .npz
     file, each leaf in its checkpoint dtype: bfloat16 leaves as their uint16
     bit patterns, widened exactly to float32 at load, the rest as float32.
@@ -33,6 +36,7 @@ from pathlib import Path
 import numpy as np
 
 from ..config import ModelConfig
+from ..parallel.placement import MODEL_AXIS, local_shape, path_str, spec_for_path
 
 SE_VGG_CHANNELS = [(1, 64), (64, 128), (128, 256), (256, 256), (256, 512), (512, 512), (512, 512)]
 SE_BLOCKS = (("se3", 256), ("se4", 512), ("se5", 512))
@@ -167,9 +171,11 @@ def _unflatten(flat: dict):
     return fix(root)
 
 
-def _port_leaves(params, batch_stats, cfg: ModelConfig):
+def _port_leaves(params, batch_stats, cfg: ModelConfig, n_model: int = 1):
     """JAX-layout trees -> ({path: float32 array} of the params in the port's
-    layout, {path: array} of the statistics at their JAX paths)."""
+    layout, {path: array} of the statistics at their JAX paths). With
+    ``n_model`` > 1 the params are one rank's part of a model axis of that
+    many ranks (parallel/placement.py)."""
     flat_p, flat_s = _flatten(params), _flatten(batch_stats)
     p_layout, s_layout = layout(cfg)
 
@@ -183,7 +189,7 @@ def _port_leaves(params, batch_stats, cfg: ModelConfig):
 
     out_p, out_s = {}, {}
     for path, shape, _ in p_layout:
-        arr = take(flat_p, path, shape, "params")
+        arr = take(flat_p, path, local_shape(path_str(path), shape, n_model), "params")
         if path[0] == "backbone" and len(shape) == 4:
             arr = arr.transpose(3, 2, 0, 1)  # conv kernels HWIO -> OIHW
         out_p[path] = arr
@@ -201,11 +207,26 @@ def _tensors(flat: dict, device):
     return _unflatten({k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in flat.items()})
 
 
-def params_from_jax(params, batch_stats, cfg: ModelConfig, device="cpu"):
+def params_from_jax(params, batch_stats, cfg: ModelConfig, device="cpu", model_group=None):
     """JAX-layout trees (nested dicts/lists of numpy arrays, any float dtype)
     -> the port's inference state: nested dicts of float32 tensors on
-    ``device``, the BatchNorm statistics merged into the backbone's params."""
-    out, stats = _port_leaves(params, batch_stats, cfg)
+    ``device``, the BatchNorm statistics merged into the backbone's params.
+    ``model_group``: a tensor-parallel group; ``params`` is then this rank's
+    part (``shard_params``), and the biases of its split columns (q, k, v,
+    lin1, the vocabulary projection, whole in the JAX package's placement)
+    are cut to its columns, so the decoder's packed self-QKV and the memory
+    K/V projections hold the local heads only."""
+    rank, n_model = 0, 1
+    if model_group is not None:
+        from ..parallel.mesh import world_of
+
+        rank, n_model = world_of(model_group)
+    out, stats = _port_leaves(params, batch_stats, cfg, n_model)
+    if n_model > 1:
+        for path, arr in out.items():
+            if path[-1] == "b" and spec_for_path(path_str(path[:-1] + ("w",)), 2) == (None, MODEL_AXIS):
+                n = arr.shape[0] // n_model
+                out[path] = arr[rank * n:(rank + 1) * n]
     out.update({("backbone",) + path: arr for path, arr in stats.items()})
     return _tensors(out, device)
 

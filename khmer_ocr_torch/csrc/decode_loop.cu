@@ -44,6 +44,15 @@
 // flagship: 73,728 B per layer at K = 3), as the TPU kernel keeps its caches
 // in VMEM; otherwise it goes to a global scratch (n_img, H, layers, k|v, K,
 // max_len, hd), each CTA's slice contiguous (geometry.k3_geometry chooses).
+// Storage type (the TPU kernel's compute dtype, memory.dtype): float or
+// bf16 for the embeddings, the weight matrices, the memory K/V, the self
+// caches (on chip too, at half the bytes in bf16, which is what lets beam
+// 4 keep them there) and the head's weight; the layer rounds as K2 does,
+// the embedding row and each layer's output are rounded to the storage
+// type (K2's output is stored in it), and the head (f32 sums of the
+// rounded output, the f32 bias) and the search run in f32, as in the TPU
+// kernel. The source builds twice, with STORAGE_BF16
+// defined for the bf16 library (ops/kernels/build.py).
 // The memory K/V of head h (Tm x hd x 2 floats a layer) come from L2 at
 // every step, as in K2. The loop's exchanges are ordered by the layer's own
 // cluster barriers (see decoder_cluster.cuh) and the one after the head; a
@@ -59,32 +68,45 @@ namespace {
 
 using namespace dec;
 
+#ifdef STORAGE_BF16
+using Storage = __nv_bfloat16;
+#else
+using Storage = float;
+#endif
+
 constexpr int MAX_LAYERS = 8;
 constexpr int BIG = 1 << 30;
 constexpr float LOWEST = -3.402823466e38f;  // below every value, NEG_INF included
 
+template <typename T>
 struct LayerPtrs {
-  const float* w[N_WEIGHTS];
-  const float* mem_k;  // (n_img, Tm, D)
-  const float* mem_v;
+  const void* w[N_WEIGHTS];  // matrices T, vectors float
+  const T* mem_k;            // (n_img, Tm, D)
+  const T* mem_v;
 };
 
+template <typename T>
 struct Args {
-  LayerPtrs layer[MAX_LAYERS];
-  const float* tok_emb;    // (V, D)
-  const float* pos_emb;    // (>= max_len, D)
-  const float* out_w;      // (D, Vp), Vp = V rounded up to a multiple of 4 H
+  LayerPtrs<T> layer[MAX_LAYERS];
+  const T* tok_emb;        // (V, D)
+  const T* pos_emb;        // (>= max_len, D)
+  const T* out_w;          // (D, Vp), Vp = V rounded up to a multiple of Vec<T>::N H
   const float* out_b;      // (Vp)
   const float* mem_valid;  // (n_img, Tm) 1/0
   int* tokens_out;         // (n_img, max_len + 2)
   float* scores_out;       // (n_img, K + 1): running scores, then the best completion's
-  float* scratch;          // global route: (n_img, H, n_layers, 2, K, max_len, hd) self caches; else null
+  T* scratch;              // global route: (n_img, H, n_layers, 2, K, max_len, hd) self caches; else null
   int n_layers, D, H, F, Tm, V, Vp, max_len, sos, eos, pad, tc, on_chip;
 };
 
-// floats of one CTA's self-cache slice: every layer's k and v for K lanes x max_len slots x hd
-__host__ __device__ inline size_t cache_floats(int K, int D, int H, int max_len, int n_layers) {
+// elements of one CTA's self-cache slice: every layer's k and v for K lanes x max_len slots x hd
+__host__ __device__ inline size_t cache_elems(int K, int D, int H, int max_len, int n_layers) {
   return (size_t)n_layers * 2 * K * max_len * (D / H);
+}
+
+// bytes of the slice on chip, rounded up to 16 so the search state after it stays aligned
+__host__ __device__ inline size_t cache_bytes(int K, int D, int H, int max_len, int n_layers) {
+  return (cache_elems(K, D, H, max_len, n_layers) * sizeof(Storage) + 15) / 16 * 16;
 }
 
 // 4-byte words of the search state after the layer's shared memory (and the caches on chip)
@@ -94,16 +116,16 @@ size_t state_words(int K, int max_len, int Vp) {
 }
 
 size_t smem_bytes(int K, int D, int H, int F, int max_len, int Vp, int n_layers, int on_chip, int tc) {
-  return (smem_floats(K, D, H, F, 1, tc) + (on_chip ? cache_floats(K, D, H, max_len, n_layers) : 0) +
-          state_words(K, max_len, Vp)) * 4;
+  return (smem_floats(K, D, H, F, 1, tc, Vec<Storage>::N) + state_words(K, max_len, Vp)) * 4 +
+         (on_chip ? cache_bytes(K, D, H, max_len, n_layers) : 0);
 }
 
 // One cluster of H CTAs per image; blockIdx.x = img * H + head. One CTA per
 // SM: with the registers of two (80 a thread) the loop spills and runs 1.7x
 // slower (examples/k3_registers_torch.py, 8 x 3, Tm=128, max_len 64: 6.769 ms
 // at 168 registers, 11.593 ms at 80, NVIDIA H100 80GB HBM3, 700 W).
-template <int K>
-__global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_constant__ Args a) {
+template <int K, typename T>
+__global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_constant__ Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();  // paired with the wait before the first DSMEM store
@@ -114,12 +136,14 @@ __global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_c
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const Smem s = carve(smem, K, D, H, a.F, 1, a.tc);
+  const Smem s = carve(smem, K, D, H, a.F, 1, a.tc, Vec<T>::N);
   const size_t slice = (size_t)K * ML * hd;  // one layer's k (or v) of this head
-  const size_t cache_n = cache_floats(K, D, H, ML, a.n_layers);
-  float* after = smem + smem_floats(K, D, H, a.F, 1, a.tc);
-  float* cache = a.on_chip ? after : a.scratch + ((size_t)img * H + rank) * cache_n;
-  float* logit = a.on_chip ? after + cache_n : after;                             // [K][Vp]
+  const size_t cache_n = cache_elems(K, D, H, ML, a.n_layers);
+  float* after = smem + smem_floats(K, D, H, a.F, 1, a.tc, Vec<T>::N);
+  T* cache = a.on_chip ? reinterpret_cast<T*>(after) : a.scratch + ((size_t)img * H + rank) * cache_n;
+  float* logit = a.on_chip ? reinterpret_cast<float*>(reinterpret_cast<char*>(after) +
+                                                      cache_bytes(K, D, H, ML, a.n_layers))
+                           : after;                                                // [K][Vp]
   float* score = logit + K * Vp;                                                   // [K]
   float* top_lp = score + K;                                                       // [K][K]
   float* best_score = top_lp + K * K;                                              // [1]
@@ -139,7 +163,7 @@ __global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_c
   if (tid == 0) *best_score = NEG_INF;
   __syncthreads();
 
-  LayerIO io;
+  LayerIO<T> io;
   io.cache.row_stride = (size_t)ML * hd;
   io.cache.t_stride = hd;
   io.img_row0 = 0;
@@ -154,11 +178,12 @@ __global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_c
   const int vw = Vp / H;  // this CTA's head columns: [rank vw, (rank + 1) vw)
 
   for (int step = 0; step < ML; ++step) {
-    // 1. embedding, full rows in every CTA
+    // 1. embedding, full rows in every CTA, rounded to T
     for (int i = tid; i < K * D; i += NT) {
       const int r = i / D;
       const int d = i - r * D;
-      s.x[i] = a.tok_emb[(size_t)tok[r * LP + step] * D + d] + a.pos_emb[(size_t)step * D + d];
+      s.x[i] = round_to<T>(to_f32(a.tok_emb[(size_t)tok[r * LP + step] * D + d]) +
+                           to_f32(a.pos_emb[(size_t)step * D + d]));
     }
     __syncthreads();
 
@@ -166,17 +191,21 @@ __global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_c
     io.pos = step;
     io.lin = lin;
     for (int li = 0; li < a.n_layers; ++li) {
-      const LayerPtrs& lp = a.layer[li];
+      const LayerPtrs<T>& lp = a.layer[li];
       io.w = lp.w;
       io.cache.k = cache + 2 * li * slice;
       io.cache.v = cache + (2 * li + 1) * slice;
       io.mem_k = lp.mem_k + (size_t)img * a.Tm * D;
       io.mem_v = lp.mem_v + (size_t)img * a.Tm * D;
-      cluster_layer<K>(cluster, s, io, step == 0 && li == 0);
+      cluster_layer<K, T>(cluster, s, io, step == 0 && li == 0);
+      if (sizeof(T) < sizeof(float)) {  // a layer's output is stored in T (the identity in float, skipped)
+        for (int i = tid; i < K * D; i += NT) s.x[i] = round_to<T>(s.x[i]);
+        __syncthreads();
+      }
     }
 
-    // 3. the head: this CTA's columns, gathered in every CTA
-    matvec_cols<K>(a.out_w, Vp, rank * vw, vw, 0, vw, a.out_b, s.x, D, D, s.y, vw, s.red, false);
+    // 3. the head: this CTA's columns (of the layer output rounded to T), gathered in every CTA
+    matvec_cols<K, T>(a.out_w, Vp, rank * vw, vw, 0, vw, a.out_b, s.x, D, D, s.y, vw, s.red, false);
     scatter_ranks<K>(cluster, 0, H, s.y, vw, logit, Vp, rank * vw, vw);
     cluster.sync();
 
@@ -288,14 +317,14 @@ __global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_c
 
 // The launch of n_img clusters of H CTAs, or (query) the number of such
 // clusters the card can hold at once, into *resident.
-template <int K>
-cudaError_t launch(const Args& a, int n_img, cudaStream_t stream, int* resident = nullptr) {
+template <int K, typename T>
+cudaError_t launch(const Args<T>& a, int n_img, cudaStream_t stream, int* resident = nullptr) {
   const size_t smem = smem_bytes(K, a.D, a.H, a.F, a.max_len, a.Vp, a.n_layers, a.on_chip, a.tc);
-  cudaError_t err = cudaFuncSetAttribute(fused_beam_decode_kernel<K>,
+  cudaError_t err = cudaFuncSetAttribute(fused_beam_decode_kernel<K, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (a.H > 8) {
-    err = cudaFuncSetAttribute(fused_beam_decode_kernel<K>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(fused_beam_decode_kernel<K, T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -311,11 +340,11 @@ cudaError_t launch(const Args& a, int n_img, cudaStream_t stream, int* resident 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   if (resident != nullptr) {
-    return cudaOccupancyMaxActiveClusters(resident, reinterpret_cast<const void*>(fused_beam_decode_kernel<K>),
+    return cudaOccupancyMaxActiveClusters(resident, reinterpret_cast<const void*>(fused_beam_decode_kernel<K, T>),
                                           &cfg);
   }
-  void* args[] = {const_cast<Args*>(&a)};
-  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(fused_beam_decode_kernel<K>), args);
+  void* args[] = {const_cast<Args<T>*>(&a)};
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(fused_beam_decode_kernel<K, T>), args);
 }
 
 }  // namespace
@@ -329,7 +358,7 @@ extern "C" int fused_beam_decode_smem_bytes(int K, int D, int H, int F, int max_
 // shared memory (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
 extern "C" int fused_beam_decode_resident_clusters(int K, int D, int H, int F, int max_len, int Vp, int n_layers,
                                                    int on_chip, int tc) {
-  Args a = {};
+  Args<Storage> a = {};
   a.D = D;
   a.H = H;
   a.F = F;
@@ -341,9 +370,9 @@ extern "C" int fused_beam_decode_resident_clusters(int K, int D, int H, int F, i
   int n = 0;
   cudaError_t err = cudaErrorInvalidValue;
   switch (K) {
-    case 2: err = launch<2>(a, 1, nullptr, &n); break;
-    case 3: err = launch<3>(a, 1, nullptr, &n); break;
-    case 4: err = launch<4>(a, 1, nullptr, &n); break;
+    case 2: err = launch<2, Storage>(a, 1, nullptr, &n); break;
+    case 3: err = launch<3, Storage>(a, 1, nullptr, &n); break;
+    case 4: err = launch<4, Storage>(a, 1, nullptr, &n); break;
     default: break;
   }
   return err == cudaSuccess ? n : -(int)err;
@@ -353,33 +382,38 @@ extern "C" int fused_beam_decode_max_layers() { return MAX_LAYERS; }
 
 // ptrs: tok_emb, pos_emb, out_w, out_b, mem_valid, tokens_out, scores_out,
 // scratch (null when on_chip), then for each layer its 18 weights
-// (layer_weights order), mem_k, mem_v. Contiguous f32 (int32 tokens_out)
-// device pointers, 16-byte aligned. One cluster of H CTAs per image (at most
-// 16); Vp a multiple of 4 H; D/H, F/H and tc multiples of 4. Returns a
-// cudaError_t.
+// (layer_weights order), mem_k, mem_v. Contiguous device pointers, 16-byte
+// aligned: the embeddings, out_w, the weight matrices, the memory K/V and
+// the scratch of the storage type (bf16 when `bf16`, which must name this
+// library's type, else f32), the rest f32 (int32 tokens_out). One cluster of
+// H CTAs per image (at most 16); Vp a multiple of the vector width (4 in
+// f32, 8 in bf16) times H; D/H and F/H multiples of the vector width, tc of
+// 4. Returns a cudaError_t.
 extern "C" int fused_beam_decode_launch(void* const* ptrs, int n_img, int K, int n_layers, int D, int H,
                                         int F, int Tm, int V, int Vp, int max_len, int sos, int eos,
-                                        int pad, int on_chip, int tc, void* stream) {
-  if (n_img < 1 || n_layers < 1 || n_layers > MAX_LAYERS || max_len < 1 || H < 1 || H > 16 || D % H ||
-      (D / H) % 4 || F % H || (F / H) % 4 || Vp % (4 * H) || V > Vp || tc < 4 || tc % 4 ||
-      (!on_chip && ptrs[7] == nullptr)) {
+                                        int pad, int on_chip, int tc, int bf16, void* stream) {
+  using T = Storage;
+  const int vw = Vec<T>::N;
+  if (bf16 != (int)(sizeof(T) == 2) || n_img < 1 || n_layers < 1 || n_layers > MAX_LAYERS || max_len < 1 ||
+      H < 1 || H > 16 || D % H || (D / H) % vw || F % H || (F / H) % vw || Vp % (vw * H) || V > Vp || tc < 4 ||
+      tc % 4 || (!on_chip && ptrs[7] == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  Args a;
-  a.tok_emb = static_cast<const float*>(ptrs[0]);
-  a.pos_emb = static_cast<const float*>(ptrs[1]);
-  a.out_w = static_cast<const float*>(ptrs[2]);
+  Args<T> a;
+  a.tok_emb = static_cast<const T*>(ptrs[0]);
+  a.pos_emb = static_cast<const T*>(ptrs[1]);
+  a.out_w = static_cast<const T*>(ptrs[2]);
   a.out_b = static_cast<const float*>(ptrs[3]);
   a.mem_valid = static_cast<const float*>(ptrs[4]);
   a.tokens_out = static_cast<int*>(ptrs[5]);
   a.scores_out = static_cast<float*>(ptrs[6]);
-  a.scratch = on_chip ? nullptr : static_cast<float*>(ptrs[7]);
+  a.scratch = on_chip ? nullptr : static_cast<T*>(ptrs[7]);
   for (int li = 0; li < n_layers; ++li) {
     void* const* p = ptrs + 8 + li * (N_WEIGHTS + 2);
-    LayerPtrs& lp = a.layer[li];
-    for (int i = 0; i < N_WEIGHTS; ++i) lp.w[i] = static_cast<const float*>(p[i]);
-    lp.mem_k = static_cast<const float*>(p[N_WEIGHTS]);
-    lp.mem_v = static_cast<const float*>(p[N_WEIGHTS + 1]);
+    LayerPtrs<T>& lp = a.layer[li];
+    for (int i = 0; i < N_WEIGHTS; ++i) lp.w[i] = p[i];
+    lp.mem_k = static_cast<const T*>(p[N_WEIGHTS]);
+    lp.mem_v = static_cast<const T*>(p[N_WEIGHTS + 1]);
   }
   a.n_layers = n_layers;
   a.D = D;
@@ -396,9 +430,9 @@ extern "C" int fused_beam_decode_launch(void* const* ptrs, int n_img, int K, int
   a.on_chip = on_chip;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 2: return (int)launch<2>(a, n_img, s);
-    case 3: return (int)launch<3>(a, n_img, s);
-    case 4: return (int)launch<4>(a, n_img, s);
+    case 2: return (int)launch<2, T>(a, n_img, s);
+    case 3: return (int)launch<3, T>(a, n_img, s);
+    case 4: return (int)launch<4, T>(a, n_img, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

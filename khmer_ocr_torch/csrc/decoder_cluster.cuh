@@ -45,6 +45,17 @@
 // sum of V in registers. The self caches are read through a strided view
 // (CacheView): K2's (rows, L, D) global caches, K3's per-head slices in
 // shared or global memory.
+//
+// Storage type T (float or __nv_bfloat16): the weight matrices, the self
+// caches and the memory K/V are T, read 16 bytes (Vec<T>::N elements) at a
+// time and widened; shared memory, biases, LayerNorms, softmax and every
+// accumulation are float. The rounding points are the TPU kernel's: every
+// product's input is rounded to T (matvec_cols rounds its input rows, the
+// attention rounds its weights before the weighted sum of V), q, k and v
+// are rounded to T where they are made (so slot pos read from shared memory
+// equals the cache slot written), and the caller rounds its outputs. With
+// T = float every rounding is the identity and the arithmetic is the
+// float kernel's, operation for operation.
 
 #pragma once
 
@@ -62,10 +73,6 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 
 __device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
-
-__device__ __forceinline__ float4 fma4(float a, float4 w, float4 acc) {
-  return make_float4(fmaf(a, w.x, acc.x), fmaf(a, w.y, acc.y), fmaf(a, w.z, acc.z), fmaf(a, w.w, acc.w));
-}
 
 // The shared-memory layout of one CTA for G lanes, S CTAs per head and
 // attention chunks of tc positions (floats, each part a multiple of 4).
@@ -85,8 +92,9 @@ struct Smem {
   int tc;       // positions per attention chunk
 };
 
-__host__ __device__ inline size_t red_floats(int G, int D, int H, int F) {
-  size_t n = 4 * (size_t)NT;
+// vw: Vec<T>::N, the columns one thread carries in a matvec or an attention row
+__host__ __device__ inline size_t red_floats(int G, int D, int H, int F, int vw) {
+  size_t n = (size_t)vw * NT;
   const size_t cols[3] = {(size_t)D, 3 * (size_t)(D / H), (size_t)(F / H)};
   for (size_t c : cols) n = c > n ? c : n;
   return (size_t)G * n;
@@ -96,13 +104,13 @@ __host__ __device__ inline size_t xo_floats(int G, int D, int H, int S) {
   return S > 1 ? (size_t)S * ((size_t)G * (D / H) + 4 * G) : 0;
 }
 
-__host__ __device__ inline size_t smem_floats(int G, int D, int H, int F, int S, int tc) {
+__host__ __device__ inline size_t smem_floats(int G, int D, int H, int F, int S, int tc, int vw) {
   const int hd = D / H;
   return (size_t)G * D * 4 + (size_t)G * 3 * hd + (size_t)G * (F / (H * S)) + (size_t)H * G * hd +
-         2 * (size_t)G * tc + xo_floats(G, D, H, S) + red_floats(G, D, H, F) + 4 * (size_t)G;
+         2 * (size_t)G * tc + xo_floats(G, D, H, S) + red_floats(G, D, H, F, vw) + 4 * (size_t)G;
 }
 
-__device__ inline Smem carve(float* base, int G, int D, int H, int F, int S, int tc) {
+__device__ inline Smem carve(float* base, int G, int D, int H, int F, int S, int tc, int vw) {
   const int hd = D / H;
   Smem s;
   s.tc = tc;
@@ -117,43 +125,58 @@ __device__ inline Smem carve(float* base, int G, int D, int H, int F, int S, int
   s.aux = reinterpret_cast<int*>(s.p + G * tc);
   s.xo = s.p + 2 * G * tc;
   s.red = s.xo + xo_floats(G, D, H, S);
-  s.stat = s.red + red_floats(G, D, H, F);
+  s.stat = s.red + red_floats(G, D, H, F, vw);
   return s;
 }
 
-// out[r][j] = bias[c(j)] + sum_k in[r][k] * W[k][c(j)] (optionally ReLU) for
-// the G rows and the ncols local columns j, where local column j is global
-// column c(j) = (j / segw) * seg_stride + col0 + j % segw of W (row stride
-// ldw). The input dimension is split over thread groups whose partial sums
-// are added in a fixed order, so two equal weight columns give bit-equal
-// outputs. bias may be null.
-template <int G>
-__device__ void matvec_cols(const float* __restrict__ W, int ldw, int col0, int segw, int seg_stride, int ncols,
+// out[r][j] = bias[c(j)] + sum_k T(in[r][k]) * W[k][c(j)] (optionally ReLU,
+// optionally rounded to T) for the G rows and the ncols local columns j,
+// where local column j is global column c(j) = (j / segw) * seg_stride +
+// col0 + j % segw of W (row stride ldw). A thread carries Vec<T>::N columns
+// (one 16-byte load of W a row); the input dimension is split over thread
+// groups whose partial sums are added in a fixed order, so two equal weight
+// columns give bit-equal outputs. bias may be null.
+template <int G, typename T>
+__device__ void matvec_cols(const T* __restrict__ W, int ldw, int col0, int segw, int seg_stride, int ncols,
                             const float* __restrict__ bias, const float* in, int in_ld, int kin, float* out,
-                            int out_ld, float* red, bool relu) {
-  const int nq = ncols >> 2;
+                            int out_ld, float* red, bool relu, bool round_out = false) {
+  constexpr int V = Vec<T>::N;
+  const int nq = ncols / V;
   int groups = NT / nq;
   if (groups < 1) groups = 1;
   const int kchunk = (kin + groups - 1) / groups;
   const int tid = threadIdx.x;
   for (int item = tid; item < groups * nq; item += NT) {
     const int g = item / nq;
-    const int j = 4 * (item - g * nq);
+    const int j = V * (item - g * nq);
     const int seg = j / segw;
-    const float* wc = W + seg * seg_stride + col0 + (j - seg * segw);
+    const T* wc = W + seg * seg_stride + col0 + (j - seg * segw);
     const int k0 = g * kchunk;
     const int k1 = min(kin, k0 + kchunk);
-    float4 acc[G];
+    float acc[G][V];
 #pragma unroll
-    for (int r = 0; r < G; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < G; ++r) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+    }
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(wc + (size_t)k * ldw));
+      float w[V];
+      ldg16(wc + (size_t)k * ldw, w);
 #pragma unroll
-      for (int r = 0; r < G; ++r) acc[r] = fma4(in[r * in_ld + k], w, acc[r]);
+      for (int r = 0; r < G; ++r) {
+        const float a = round_to<T>(in[r * in_ld + k]);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[r][e] = fmaf(a, w[e], acc[r][e]);
+      }
     }
 #pragma unroll
-    for (int r = 0; r < G; ++r) *reinterpret_cast<float4*>(red + (g * G + r) * ncols + j) = acc[r];
+    for (int r = 0; r < G; ++r) {
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(red + (g * G + r) * ncols + j + e) =
+            make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
+    }
   }
   __syncthreads();
   for (int i = tid; i < G * ncols; i += NT) {
@@ -166,7 +189,7 @@ __device__ void matvec_cols(const float* __restrict__ W, int ldw, int col0, int 
       v += bias[seg * seg_stride + col0 + (j - seg * segw)];
     }
     if (relu) v = fmaxf(v, 0.f);
-    out[r * out_ld + j] = v;
+    out[r * out_ld + j] = round_out ? round_to<T>(v) : v;
   }
   __syncthreads();
 }
@@ -191,9 +214,10 @@ __device__ void scatter_ranks(const cg::cluster_group& cluster, int first, int c
 // Where the K and V rows (this head's hd columns) of position t come from:
 // row_of(r, t) = cross ? nothing : the cache row of lane r's slot t, and the
 // row starts at k + row * row_stride + t * t_stride.
+template <typename T>
 struct HeadRows {
-  const float* k;      // cross: the image's memory K at this head's columns; self: the cache view
-  const float* v;
+  const T* k;          // cross: the image's memory K at this head's columns; self: the cache view
+  const T* v;
   const int* lin;      // self: lineage row of the group's first lane (image-local), or nullptr
   const float* own;    // self: the group's new q|k|v rows in shared memory ([G][3hd])
   size_t row_stride;   // self: floats between two cache rows (lanes)
@@ -201,23 +225,26 @@ struct HeadRows {
   int lin_stride, img_row0, lane0, pos, hd;
 };
 
-// o[r][e] = sum_t exp(q[r] . k_t / sqrt(hd) - m[r]) v_t[e] over this head's hd
-// columns for the G rows and positions tb..te-1, with m[r] the largest logit
-// and l[r] the sum of the weights (left in s.stat). normalize: out = o / l,
-// else out = o. CROSS: the rows share the image's memory positions, masked
-// by valid; otherwise each row reads its own lineage-gathered cache slots.
-// Online softmax over chunks of s.tc positions; each chunk first stages its
-// validity flags (cross) or its source cache rows (self) in shared memory,
-// so that no global load waits on another.
-template <int G, bool CROSS>
-__device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int te, const HeadRows& src,
+// o[r][e] = sum_t T(exp(q[r] . k_t / sqrt(hd) - m[r])) v_t[e] over this
+// head's hd columns for the G rows and positions tb..te-1, with m[r] the
+// largest logit and l[r] the sum of the weights (left in s.stat).
+// normalize: out = o / l, else out = o. CROSS: the rows share the image's
+// memory positions, masked by valid; otherwise each row reads its own
+// lineage-gathered cache slots. Online softmax over chunks of s.tc
+// positions; each chunk first stages its validity flags (cross) or its
+// source cache rows (self) in shared memory, so that no global load waits
+// on another. Dot products run over 16-byte vectors of T, their lanes
+// summed from the last to the first.
+template <int G, bool CROSS, typename T>
+__device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int te, const HeadRows<T>& src,
                             const float* __restrict__ valid, float* out, bool normalize) {
+  constexpr int V = Vec<T>::N;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int hd = src.hd;
-  const int n4 = hd >> 2;
-  const int tgroups = NT / n4;
+  const int nv = hd / V;
+  const int tgroups = NT / nv;
   const int TC = s.tc;
   const float scale = 1.0f / sqrtf((float)hd);
   float* m = s.stat;
@@ -227,11 +254,14 @@ __device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int
     m[tid] = NEG_INF;
     l[tid] = 0.f;
   }
-  float4 acc[G];
+  float acc[G][V];
 #pragma unroll
-  for (int r = 0; r < G; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int q4 = tid % n4;
-  const int tg = tid / n4;
+  for (int r = 0; r < G; ++r) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[r][e] = 0.f;
+  }
+  const int qv = tid % nv;
+  const int tg = tid / nv;
 
   for (int t0 = tb; t0 < te; t0 += TC) {
     const int n = min(TC, te - t0);
@@ -256,13 +286,16 @@ __device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int
         for (int r = 0; r < G; ++r) dot[r] = 0.f;
         const bool ok = s.aux[tt] != 0;
         if (ok) {
-          const float4* kr = reinterpret_cast<const float4*>(src.k + (size_t)(t0 + tt) * src.t_stride);
-          for (int c = 0; c < n4; ++c) {
-            const float4 kv = __ldg(kr + c);
+          const T* kr = src.k + (size_t)(t0 + tt) * src.t_stride;
+          for (int c = 0; c < nv; ++c) {
+            float kv[V];
+            ldg16(kr + c * V, kv);
 #pragma unroll
             for (int r = 0; r < G; ++r) {
-              const float4 qv = *reinterpret_cast<const float4*>(q + r * q_ld + 4 * c);
-              dot[r] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, dot[r]))));
+              float qq[V];
+              ld16f<V>(q + r * q_ld + V * c, qq);
+#pragma unroll
+              for (int e = V - 1; e >= 0; --e) dot[r] = fmaf(qq[e], kv[e], dot[r]);
             }
           }
         }
@@ -274,15 +307,18 @@ __device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int
         const int r = i / n;
         const int tt = i - r * n;
         const int row = s.aux[r * TC + tt];
-        const float4* kr = reinterpret_cast<const float4*>(
-            row < 0 ? src.own + r * 3 * hd + hd
-                    : src.k + (size_t)row * src.row_stride + (size_t)(t0 + tt) * src.t_stride);
         const float* qr = q + r * q_ld;
         float dot = 0.f;
-        for (int c = 0; c < n4; ++c) {
-          const float4 kv = kr[c];
-          const float4 qv = *reinterpret_cast<const float4*>(qr + 4 * c);
-          dot = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, dot))));
+        for (int c = 0; c < nv; ++c) {
+          float kv[V], qq[V];
+          if (row < 0) {
+            ld16f<V>(src.own + r * 3 * hd + hd + c * V, kv);
+          } else {
+            ld16(src.k + (size_t)row * src.row_stride + (size_t)(t0 + tt) * src.t_stride + c * V, kv);
+          }
+          ld16f<V>(qr + V * c, qq);
+#pragma unroll
+          for (int e = V - 1; e >= 0; --e) dot = fmaf(qq[e], kv[e], dot);
         }
         s.p[r * TC + tt] = dot * scale;
       }
@@ -313,28 +349,40 @@ __device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int
     }
     __syncthreads();
 
-    // weighted sum of V: thread (q4, tg) owns 4 columns over positions tg + k * tgroups
+    // weighted sum of V: thread (qv, tg) owns V columns over positions tg + k * tgroups
     if (tg < tgroups) {
 #pragma unroll
       for (int r = 0; r < G; ++r) {
         const float c = corr[r];
-        acc[r] = make_float4(acc[r].x * c, acc[r].y * c, acc[r].z * c, acc[r].w * c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[r][e] *= c;
       }
       if (CROSS) {
         for (int tt = tg; tt < n; tt += tgroups) {
           if (!s.aux[tt]) continue;
-          const float4 vv = __ldg(reinterpret_cast<const float4*>(src.v + (size_t)(t0 + tt) * src.t_stride) + q4);
+          float vv[V];
+          ldg16(src.v + (size_t)(t0 + tt) * src.t_stride + qv * V, vv);
 #pragma unroll
-          for (int r = 0; r < G; ++r) acc[r] = fma4(s.p[r * TC + tt], vv, acc[r]);
+          for (int r = 0; r < G; ++r) {
+            const float p = round_to<T>(s.p[r * TC + tt]);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
+          }
         }
       } else {
 #pragma unroll
         for (int r = 0; r < G; ++r) {
           for (int tt = tg; tt < n; tt += tgroups) {
             const int row = s.aux[r * TC + tt];
-            const float* vr = row < 0 ? src.own + r * 3 * hd + 2 * hd
-                                      : src.v + (size_t)row * src.row_stride + (size_t)(t0 + tt) * src.t_stride;
-            acc[r] = fma4(s.p[r * TC + tt], reinterpret_cast<const float4*>(vr)[q4], acc[r]);
+            float vv[V];
+            if (row < 0) {
+              ld16f<V>(src.own + r * 3 * hd + 2 * hd + qv * V, vv);
+            } else {
+              ld16(src.v + (size_t)row * src.row_stride + (size_t)(t0 + tt) * src.t_stride + qv * V, vv);
+            }
+            const float p = round_to<T>(s.p[r * TC + tt]);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
           }
         }
       }
@@ -344,7 +392,12 @@ __device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int
 
   if (tg < tgroups) {
 #pragma unroll
-    for (int r = 0; r < G; ++r) *reinterpret_cast<float4*>(s.red + (tg * G + r) * hd + 4 * q4) = acc[r];
+    for (int r = 0; r < G; ++r) {
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(s.red + (tg * G + r) * hd + V * qv + e) =
+            make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
+    }
   }
   __syncthreads();
   for (int i = tid; i < G * hd; i += NT) {
@@ -360,23 +413,25 @@ __device__ void attend_head(const Smem& s, const float* q, int q_ld, int tb, int
 // (a lane) at slot t is k[row * row_stride + t * t_stride + e]; k and v
 // point at this head's column 0. K2: the (rows, L, D) caches (row_stride
 // L D, t_stride D); K3: the head's own slice (lanes, max_len, hd).
+template <typename T>
 struct CacheView {
-  float* k;
-  float* v;
+  T* k;
+  T* v;
   size_t row_stride;
   int t_stride;
 };
 
 // What one layer of one cluster reads and writes besides its shared memory.
+template <typename T>
 struct LayerIO {
-  const float* const* w;   // the 18 weights, in the enum's order
-  CacheView cache;         // written at slot pos (this CTA's columns of the cluster's lanes)
+  const void* const* w;    // the 18 weights, in the enum's order: matrices T, vectors float
+  CacheView<T> cache;      // written at slot pos (this CTA's columns of the cluster's lanes)
   int img_row0;            // cache row of the image's lane 0
   int lane0;               // image-local lane of the cluster's first row
   const int* lin;          // lineage row of the cluster's first lane (image-local parents), or nullptr
   int lin_stride;          // ints between two lanes' lineage rows
-  const float* mem_k;      // the image's memory K/V (Tm, D) at column 0
-  const float* mem_v;
+  const T* mem_k;          // the image's memory K/V (Tm, D) at column 0
+  const T* mem_v;
   const float* mem_valid;  // the image's (Tm) 1/0
   int D, H, F, S, Tm, pos;
 };
@@ -385,8 +440,8 @@ struct LayerIO {
 // H x S CTAs (rank = head * S + part). wait_start: the first call after the
 // kernel's cluster_arrive_relaxed(); it waits for every CTA of the cluster
 // to have started before the first DSMEM store.
-template <int G>
-__device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, const LayerIO& io, bool wait_start) {
+template <int G, typename T>
+__device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, const LayerIO<T>& io, bool wait_start) {
   const int D = io.D, H = io.H, F = io.F, S = io.S;
   const int ncta = H * S;
   const int rank = (int)cluster.block_rank();
@@ -398,20 +453,22 @@ __device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, c
   const int c0 = head * hd;   // this head's columns
   const int fs = F / ncta;    // this CTA's FFN hidden columns: [rank * fs, (rank + 1) * fs)
   const int tid = threadIdx.x;
-  const float* const* w = io.w;
-  const CacheView& cv = io.cache;
+  auto mat = [&](int i) { return static_cast<const T*>(io.w[i]); };
+  auto vec = [&](int i) { return static_cast<const float*>(io.w[i]); };
+  const CacheView<T>& cv = io.cache;
 
   // 1. this CTA's q, k, v columns and its slice of cache slot pos; with S = 2
   //    the two halves of the head's q, k, v meet in both CTAs of the head
   float* qkv_own = S == 1 ? s.qkv : s.y;  // [G][3 sw]
-  matvec_cols<G>(w[QKV_W], 3 * D, cs, sw, D, 3 * sw, w[QKV_B], s.x, D, D, qkv_own, 3 * sw, s.red, false);
+  matvec_cols<G, T>(mat(QKV_W), 3 * D, cs, sw, D, 3 * sw, vec(QKV_B), s.x, D, D, qkv_own, 3 * sw, s.red, false,
+                    true);
   for (int i = tid; i < G * sw; i += NT) {
     const int r = i / sw;
     const int e = i - r * sw;
     const size_t off = (size_t)(io.img_row0 + io.lane0 + r) * cv.row_stride + (size_t)io.pos * cv.t_stride +
                        part * sw + e;
-    cv.k[off] = qkv_own[r * 3 * sw + sw + e];
-    cv.v[off] = qkv_own[r * 3 * sw + 2 * sw + e];
+    cv.k[off] = from_f32<T>(qkv_own[r * 3 * sw + sw + e]);
+    cv.v[off] = from_f32<T>(qkv_own[r * 3 * sw + 2 * sw + e]);
   }
   if (wait_start) cluster_wait();  // every CTA of the cluster has started
   if (S > 1) {
@@ -421,7 +478,7 @@ __device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, c
   }
 
   // 2. head h's self-attention; each CTA sends its columns of it to every CTA
-  HeadRows self;
+  HeadRows<T> self;
   self.k = cv.k;
   self.v = cv.v;
   self.lin = io.lin;
@@ -433,33 +490,33 @@ __device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, c
   self.lane0 = io.lane0;
   self.pos = io.pos;
   self.hd = hd;
-  attend_head<G, false>(s, s.qkv, 3 * hd, 0, io.pos + 1, self, nullptr, s.y, true);
+  attend_head<G, false, T>(s, s.qkv, 3 * hd, 0, io.pos + 1, self, nullptr, s.y, true);
   scatter_ranks<G>(cluster, 0, ncta, s.y + part * sw, hd, s.a, D, cs, sw);
   cluster.sync();
 
   // 3. out-projection columns of this CTA, exchanged; residual and LN1 on full rows
-  matvec_cols<G>(w[SO_W], D, cs, sw, 0, sw, w[SO_B], s.a, D, D, s.y, sw, s.red, false);
+  matvec_cols<G, T>(mat(SO_W), D, cs, sw, 0, sw, vec(SO_B), s.a, D, D, s.y, sw, s.red, false);
   scatter_ranks<G>(cluster, 0, ncta, s.y, sw, s.t, D, cs, sw);
   cluster.sync();
-  residual_ln<G>(s.x, s.t, w[LN1_S], w[LN1_B], D);
+  residual_ln<G>(s.x, s.t, vec(LN1_S), vec(LN1_B), D);
 
   // 4. cross-attention of head h over its columns of the image's memory; with
   //    S = 2 each CTA of the head takes half the positions, and the halves
   //    merge by their log-sum-exp in the order of the CTAs
   if (S == 1) {
-    matvec_cols<G>(w[CQ_W], D, c0, hd, 0, hd, w[CQ_B], s.x, D, D, s.qkv, hd, s.red, false);
+    matvec_cols<G, T>(mat(CQ_W), D, c0, hd, 0, hd, vec(CQ_B), s.x, D, D, s.qkv, hd, s.red, false, true);
   } else {
-    matvec_cols<G>(w[CQ_W], D, cs, sw, 0, sw, w[CQ_B], s.x, D, D, s.y, sw, s.red, false);
+    matvec_cols<G, T>(mat(CQ_W), D, cs, sw, 0, sw, vec(CQ_B), s.x, D, D, s.y, sw, s.red, false, true);
     scatter_ranks<G>(cluster, head * S, S, s.y, sw, s.qkv, hd, part * sw, sw);
     cluster.sync();
   }
-  HeadRows cross = self;
+  HeadRows<T> cross = self;
   cross.k = io.mem_k + c0;
   cross.v = io.mem_v + c0;
   cross.t_stride = D;
   const int per = (io.Tm + S - 1) / S;
   const int tb = min(io.Tm, part * per);
-  attend_head<G, true>(s, s.qkv, hd, tb, min(io.Tm, tb + per), cross, io.mem_valid, s.y, S == 1);
+  attend_head<G, true, T>(s, s.qkv, hd, tb, min(io.Tm, tb + per), cross, io.mem_valid, s.y, S == 1);
   const float* ca = s.y + part * sw;  // this CTA's columns of the head output
   int ca_ld = hd;
   if (S > 1) {
@@ -500,15 +557,15 @@ __device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, c
   cluster.sync();
 
   // 5. out-projection, LN2
-  matvec_cols<G>(w[CO_W], D, cs, sw, 0, sw, w[CO_B], s.a, D, D, s.y, sw, s.red, false);
+  matvec_cols<G, T>(mat(CO_W), D, cs, sw, 0, sw, vec(CO_B), s.a, D, D, s.y, sw, s.red, false);
   scatter_ranks<G>(cluster, 0, ncta, s.y, sw, s.t, D, cs, sw);
   cluster.sync();
-  residual_ln<G>(s.x, s.t, w[LN2_S], w[LN2_B], D);
+  residual_ln<G>(s.x, s.t, vec(LN2_S), vec(LN2_B), D);
 
   // 6. FFN: this CTA's hidden slice, its partial of the output, reduce-scatter
   //    in CTA order, all-gather; residual and LN3
-  matvec_cols<G>(w[L1_W], F, rank * fs, fs, 0, fs, w[L1_B], s.x, D, D, s.hid, fs, s.red, true);
-  matvec_cols<G>(w[L2_W] + (size_t)rank * fs * D, D, 0, D, 0, D, nullptr, s.hid, fs, fs, s.y, D, s.red, false);
+  matvec_cols<G, T>(mat(L1_W), F, rank * fs, fs, 0, fs, vec(L1_B), s.x, D, D, s.hid, fs, s.red, true);
+  matvec_cols<G, T>(mat(L2_W) + (size_t)rank * fs * D, D, 0, D, 0, D, nullptr, s.hid, fs, fs, s.y, D, s.red, false);
   {
     const int n4 = sw >> 2;
     for (int i = tid; i < ncta * G * n4; i += NT) {
@@ -524,12 +581,12 @@ __device__ void cluster_layer(const cg::cluster_group& cluster, const Smem& s, c
   for (int i = tid; i < G * sw; i += NT) {
     float v = 0.f;
     for (int q = 0; q < ncta; ++q) v += s.part[q * G * sw + i];
-    s.y[i] = v + w[L2_B][cs + i % sw];
+    s.y[i] = v + vec(L2_B)[cs + i % sw];
   }
   __syncthreads();
   scatter_ranks<G>(cluster, 0, ncta, s.y, sw, s.t, D, cs, sw);
   cluster.sync();
-  residual_ln<G>(s.x, s.t, w[LN3_S], w[LN3_B], D);
+  residual_ln<G>(s.x, s.t, vec(LN3_S), vec(LN3_B), D);
 }
 
 }  // namespace dec

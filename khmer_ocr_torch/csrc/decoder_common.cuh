@@ -1,12 +1,16 @@
 // Constants and small device routines of the decoder layer that kernels K2
 // (decoder_layer_step.cu) and K3 (decode_loop.cu) share through the cluster
 // layer of decoder_cluster.cuh: the CTA size, the masking constant, the
-// LayerNorm epsilon, the order of the layer's 18 weights, warp reductions
-// and the residual LayerNorm on full rows (one warp per lane row, so every
-// CTA of a cluster computes the same bits from the same rows).
+// LayerNorm epsilon, the order of the layer's 18 weights, warp reductions,
+// the residual LayerNorm on full rows (one warp per lane row, so every CTA
+// of a cluster computes the same bits from the same rows), and the storage
+// types: float or __nv_bfloat16 for x, the caches, the memory K/V and the
+// weight matrices, read 16 bytes at a time and widened to float, while the
+// biases, LayerNorm parameters, softmax and every sum stay float.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dec {
@@ -32,6 +36,80 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Elements of a 16-byte vector of the storage type T.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+};
+
+// CTAs per SM a kernel's registers are bounded for: two in float; one in
+// bf16, whose 8-wide vectors double the accumulators (and whose shared
+// memory at 8 lanes a cluster leaves room for one CTA anyway).
+template <typename T>
+struct MinBlocks {
+  static constexpr int value = sizeof(T) == 4 ? 2 : 1;
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T (to nearest, ties to even) and widened back: the compute
+// dtype's rounding of an f32 value, the identity for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+__device__ __forceinline__ void widen(const float4 v, float* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+__device__ __forceinline__ void widen(const uint4 u, float* o) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// Vec<T>::N elements at p (16-byte aligned) as floats: ldg16 through the
+// read-only path (weights and memory K/V, never written by the kernel),
+// ld16 a plain load (self caches, which the kernel writes, in global or
+// shared memory), ld16f from float shared memory.
+__device__ __forceinline__ void ldg16(const float* p, float* o) { widen(__ldg(reinterpret_cast<const float4*>(p)), o); }
+__device__ __forceinline__ void ldg16(const __nv_bfloat16* p, float* o) {
+  widen(__ldg(reinterpret_cast<const uint4*>(p)), o);
+}
+__device__ __forceinline__ void ld16(const float* p, float* o) { widen(*reinterpret_cast<const float4*>(p), o); }
+__device__ __forceinline__ void ld16(const __nv_bfloat16* p, float* o) { widen(*reinterpret_cast<const uint4*>(p), o); }
+template <int N>
+__device__ __forceinline__ void ld16f(const float* p, float* o) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) widen(*reinterpret_cast<const float4*>(p + i), o + i);
 }
 
 // x[r] = LayerNorm(x[r] + t[r]) for the K rows; one warp per row.

@@ -12,14 +12,23 @@
 //   5. cross-attention of every lane over its image's single memory K/V
 //      (Tm, D), masked by mem_valid;
 //   6. out-projection, residual, LayerNorm 2;
-//   7. ReLU FFN D -> F -> D, residual, LayerNorm 3.
+//   7. ReLU FFN D -> F -> D, residual, LayerNorm 3;
+//   8. optionally (the TPU kernel's `head`) the decode head: logits over
+//      the Vp padded vocabulary columns, rounded to the storage type, plus
+//      the bias rounded to it, then a log-softmax over the first v_real
+//      columns in f32 (the others NEG_INF).
 // Softmax and all sums are f32. Slots t > pos are masked in the reference,
 // so the kernel reads only t <= pos; that is the same function.
 //
+// Storage type (the TPU kernel's compute dtype): float or bf16 for x, the
+// caches, the memory K/V, the weight matrices and the output; biases and
+// LayerNorm parameters, mem_valid and the log-probs are float. The
+// rounding points are the TPU kernel's (decoder_cluster.cuh).
+//
 // What bounds it on the H100: bytes. Per launch it must read the layer's
-// weights (about 8.3 MB in f32 at D = 384, F = 1536), the lanes' K/V prefixes
-// and each image's memory K/V (2 x Tm x D x 4 bytes, 12.6 MB per image at
-// Tm = 4096); its FLOPs are tiny. At the main path's 1-8 images what a
+// weights (about 8.3 MB in f32 at D = 384, F = 1536, half that in bf16),
+// the lanes' K/V prefixes and each image's memory K/V (2 x Tm x D elements
+// per image); its FLOPs are tiny. At the main path's 1-8 images what a
 // launch costs is how many SMs share that reading, and how long each one's
 // serial chain of reads and barriers is.
 //
@@ -36,7 +45,12 @@
 // with half the head's columns and half the memory positions. A CTA reads
 // slots < pos of any lane of its image (written by earlier launches) and
 // slot pos of its own lanes only (from shared memory), so the clusters of
-// one image need no synchronisation.
+// one image need no synchronisation. The head splits the Vp columns over
+// the cluster's CTAs, gathers the logits in every CTA over DSMEM and takes
+// each row's log-sum-exp in one warp, in the same order in every CTA.
+//
+// The storage type is fixed at compile time: the source builds twice,
+// with STORAGE_BF16 defined for the bf16 library (ops/kernels/build.py).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -47,28 +61,38 @@ namespace {
 
 using namespace dec;
 
+#ifdef STORAGE_BF16
+using Storage = __nv_bfloat16;
+#else
+using Storage = float;
+#endif
+
 constexpr int TC = 512;       // attention positions per chunk
 constexpr int MAX_GROUP = 8;  // lanes per cluster
 
+template <typename T>
 struct Args {
-  const float* x;          // (B, D)
-  float* self_k;           // (B, L, D), written at slot pos
-  float* self_v;           // (B, L, D)
-  const float* mem_k;      // (n_img, Tm, D)
-  const float* mem_v;      // (n_img, Tm, D)
+  const T* x;              // (B, D)
+  T* self_k;               // (B, L, D), written at slot pos
+  T* self_v;               // (B, L, D)
+  const T* mem_k;          // (n_img, Tm, D)
+  const T* mem_v;          // (n_img, Tm, D)
   const float* mem_valid;  // (n_img, Tm) 1/0
   const int* lineage;      // (B, lin_stride) image-local parents, or nullptr
-  const float* w[N_WEIGHTS];
-  float* x_out;            // (B, D)
-  int D, H, F, L, Tm, pos, lin_stride, lanes, split;
+  const void* w[N_WEIGHTS];
+  T* x_out;                // (B, D)
+  const T* head_w;         // (D, Vp), or nullptr: no head
+  const float* head_b;     // (Vp)
+  float* logp;             // (B, Vp)
+  int D, H, F, L, Tm, pos, lin_stride, lanes, split, Vp, v_real;
 };
 
 // One cluster of H x S CTAs per (image, group of G lanes); blockIdx.x =
 // (img * n_grp + grp) * H * S + rank, rank = head * S + part. With S = 2 the
 // two CTAs of a head split its columns of every projection and its memory
 // positions.
-template <int G>
-__global__ void __launch_bounds__(NT, 2) decoder_layer_step_kernel(const __grid_constant__ Args a) {
+template <int G, typename T>
+__global__ void __launch_bounds__(NT, MinBlocks<T>::value) decoder_layer_step_kernel(const __grid_constant__ Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();  // paired with the wait before the first DSMEM store
@@ -85,12 +109,12 @@ __global__ void __launch_bounds__(NT, 2) decoder_layer_step_kernel(const __grid_
   const int img_row0 = img * a.lanes;
   const int row0 = img_row0 + lane0;
   const int tid = threadIdx.x;
-  const Smem s = carve(smem, G, D, a.H, a.F, S, TC);
+  const Smem s = carve(smem, G, D, a.H, a.F, S, TC, Vec<T>::N);
 
-  for (int i = tid; i < G * D; i += NT) s.x[i] = a.x[(size_t)row0 * D + i];
+  for (int i = tid; i < G * D; i += NT) s.x[i] = to_f32(a.x[(size_t)row0 * D + i]);
   __syncthreads();
 
-  LayerIO io;
+  LayerIO<T> io;
   io.w = a.w;
   io.cache.k = a.self_k + (rank / S) * hd;
   io.cache.v = a.self_v + (rank / S) * hd;
@@ -109,24 +133,61 @@ __global__ void __launch_bounds__(NT, 2) decoder_layer_step_kernel(const __grid_
   io.S = S;
   io.Tm = a.Tm;
   io.pos = a.pos;
-  cluster_layer<G>(cluster, s, io, true);
+  cluster_layer<G, T>(cluster, s, io, true);
 
   for (int i = tid; i < G * sw; i += NT) {
     const int r = i / sw;
     const int e = i - r * sw;
-    a.x_out[(size_t)(row0 + r) * D + cs + e] = s.x[r * D + cs + e];
+    a.x_out[(size_t)(row0 + r) * D + cs + e] = from_f32<T>(s.x[r * D + cs + e]);
+  }
+
+  if (a.head_w != nullptr) {
+    // the head: this CTA's vw logit columns from the layer output rounded to T (matvec_cols rounds its input),
+    // the f32 sum rounded to T, the bias rounded to T added and the sum rounded again; gathered into s.a (free
+    // since the layer's last exchange) of every CTA
+    const int Vp = a.Vp;
+    const int vw = Vp / ncta;
+    const int c0 = rank * vw;
+    matvec_cols<G, T>(a.head_w, Vp, c0, vw, 0, vw, nullptr, s.x, D, D, s.y, vw, s.red, false, true);
+    for (int i = tid; i < G * vw; i += NT) {
+      const int c = c0 + i % vw;
+      const float v = round_to<T>(s.y[i] + round_to<T>(a.head_b[c]));
+      s.y[i] = c < a.v_real ? v : NEG_INF;
+    }
+    __syncthreads();
+    scatter_ranks<G>(cluster, 0, ncta, s.y, vw, s.a, Vp, c0, vw);
+    cluster.sync();
+    // log-sum-exp of each row over every column, one warp a row, the same order in every CTA
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    if (warp < G) {
+      const float* lr = s.a + warp * Vp;
+      float m = NEG_INF;
+      for (int c = lane; c < Vp; c += 32) m = fmaxf(m, lr[c]);
+      m = warp_max(m);
+      float se = 0.f;
+      for (int c = lane; c < Vp; c += 32) se += lr[c] != NEG_INF ? expf(lr[c] - m) : 0.f;
+      se = warp_sum(se);
+      if (lane == 0) s.stat[warp] = logf(se) + m;
+    }
+    __syncthreads();
+    for (int i = tid; i < G * vw; i += NT) {
+      const int r = i / vw;
+      const int c = c0 + (i - r * vw);
+      a.logp[(size_t)(row0 + r) * Vp + c] = c < a.v_real ? s.a[r * Vp + c] - s.stat[r] : NEG_INF;
+    }
   }
 }
 
-template <int G>
-cudaError_t launch(const Args& a, int n_img, cudaStream_t stream) {
-  const size_t smem = smem_floats(G, a.D, a.H, a.F, a.split, TC) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(decoder_layer_step_kernel<G>,
+template <int G, typename T>
+cudaError_t launch(const Args<T>& a, int n_img, cudaStream_t stream) {
+  const size_t smem = smem_floats(G, a.D, a.H, a.F, a.split, TC, Vec<T>::N) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(decoder_layer_step_kernel<G, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int ncta = a.H * a.split;
   if (ncta > 8) {
-    err = cudaFuncSetAttribute(decoder_layer_step_kernel<G>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = cudaFuncSetAttribute(decoder_layer_step_kernel<G, T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -141,36 +202,40 @@ cudaError_t launch(const Args& a, int n_img, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  void* args[] = {const_cast<Args*>(&a)};
-  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decoder_layer_step_kernel<G>), args);
+  void* args[] = {const_cast<Args<T>*>(&a)};
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decoder_layer_step_kernel<G, T>), args);
 }
 
-}  // namespace
-
-extern "C" int decoder_layer_step_smem_bytes(int group, int D, int H, int F, int split) {
-  return (int)(smem_floats(group, D, H, F, split, TC) * sizeof(float));
+template <typename T>
+int launch_group(const Args<T>& a, int group, int n_img, cudaStream_t s) {
+  switch (group) {
+    case 1: return (int)launch<1, T>(a, n_img, s);
+    case 2: return (int)launch<2, T>(a, n_img, s);
+    case 3: return (int)launch<3, T>(a, n_img, s);
+    case 4: return (int)launch<4, T>(a, n_img, s);
+    case 5: return (int)launch<5, T>(a, n_img, s);
+    case 6: return (int)launch<6, T>(a, n_img, s);
+    case 7: return (int)launch<7, T>(a, n_img, s);
+    default: return (int)launch<8, T>(a, n_img, s);
+  }
 }
 
-// ptrs: x, self_k, self_v, mem_k, mem_v, mem_valid, lineage (may be null),
-// the 18 layer weights in layer_weights order, x_out. Contiguous f32 (int32
-// lineage) device pointers, 16-byte aligned. `group` lanes per cluster
-// (1..8, dividing lanes), H x split CTAs per cluster (at most 16, split 1 or
-// 2), D/(H split) and F/(H split) multiples of 4. Returns a cudaError_t.
-extern "C" int decoder_layer_step_launch(void* const* ptrs, int n_img, int lanes, int group, int D, int H, int F,
-                                         int L, int Tm, int pos, int lin_stride, int split, void* stream) {
-  if (lanes < 1 || group < 1 || group > MAX_GROUP || lanes % group || H < 1 || split < 1 || split > 2 ||
-      H * split > 16 || D % H || F % (H * split) || (D / H) % (4 * split) || (F / (H * split)) % 4)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.x = static_cast<const float*>(ptrs[0]);
-  a.self_k = static_cast<float*>(ptrs[1]);
-  a.self_v = static_cast<float*>(ptrs[2]);
-  a.mem_k = static_cast<const float*>(ptrs[3]);
-  a.mem_v = static_cast<const float*>(ptrs[4]);
+template <typename T>
+int fill_and_launch(void* const* ptrs, int n_img, int lanes, int group, int D, int H, int F, int L, int Tm, int pos,
+                    int lin_stride, int split, int Vp, int v_real, cudaStream_t s) {
+  Args<T> a;
+  a.x = static_cast<const T*>(ptrs[0]);
+  a.self_k = static_cast<T*>(ptrs[1]);
+  a.self_v = static_cast<T*>(ptrs[2]);
+  a.mem_k = static_cast<const T*>(ptrs[3]);
+  a.mem_v = static_cast<const T*>(ptrs[4]);
   a.mem_valid = static_cast<const float*>(ptrs[5]);
   a.lineage = static_cast<const int*>(ptrs[6]);
-  for (int i = 0; i < N_WEIGHTS; ++i) a.w[i] = static_cast<const float*>(ptrs[7 + i]);
-  a.x_out = static_cast<float*>(ptrs[7 + N_WEIGHTS]);
+  for (int i = 0; i < N_WEIGHTS; ++i) a.w[i] = ptrs[7 + i];
+  a.x_out = static_cast<T*>(ptrs[7 + N_WEIGHTS]);
+  a.head_w = static_cast<const T*>(ptrs[8 + N_WEIGHTS]);
+  a.head_b = static_cast<const float*>(ptrs[9 + N_WEIGHTS]);
+  a.logp = static_cast<float*>(ptrs[10 + N_WEIGHTS]);
   a.D = D;
   a.H = H;
   a.F = F;
@@ -180,15 +245,39 @@ extern "C" int decoder_layer_step_launch(void* const* ptrs, int n_img, int lanes
   a.lin_stride = lin_stride;
   a.lanes = lanes;
   a.split = split;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (group) {
-    case 1: return (int)launch<1>(a, n_img, s);
-    case 2: return (int)launch<2>(a, n_img, s);
-    case 3: return (int)launch<3>(a, n_img, s);
-    case 4: return (int)launch<4>(a, n_img, s);
-    case 5: return (int)launch<5>(a, n_img, s);
-    case 6: return (int)launch<6>(a, n_img, s);
-    case 7: return (int)launch<7>(a, n_img, s);
-    default: return (int)launch<8>(a, n_img, s);
-  }
+  a.Vp = Vp;
+  a.v_real = v_real;
+  return launch_group<T>(a, group, n_img, s);
 }
+
+}  // namespace
+
+// vw: 4 for float storage, 8 for bf16 (the elements of a 16-byte vector)
+extern "C" int decoder_layer_step_smem_bytes(int group, int D, int H, int F, int split, int vw) {
+  return (int)(smem_floats(group, D, H, F, split, TC, vw) * sizeof(float));
+}
+
+// ptrs: x, self_k, self_v, mem_k, mem_v, mem_valid, lineage (may be null),
+// the 18 layer weights in layer_weights order, x_out, head_w, head_b, logp
+// (the last three null without the head). Contiguous device pointers,
+// 16-byte aligned: x, caches, memory K/V, weight matrices, x_out and head_w
+// of the storage type (bf16 when `bf16`, which must name this library's
+// type, else f32), every other operand
+// f32 (int32 lineage). `group` lanes per cluster (1..8, dividing lanes),
+// H x split CTAs per cluster (at most 16, split 1 or 2), D/(H split) and
+// F/(H split) multiples of the vector width (4 in f32, 8 in bf16), Vp a
+// multiple of it times H split and at most D. Returns a cudaError_t.
+extern "C" int decoder_layer_step_launch(void* const* ptrs, int n_img, int lanes, int group, int D, int H, int F,
+                                         int L, int Tm, int pos, int lin_stride, int split, int bf16, int Vp,
+                                         int v_real, void* stream) {
+  const int vw = bf16 ? 8 : 4;
+  const bool head = ptrs[8 + N_WEIGHTS] != nullptr;
+  if (lanes < 1 || group < 1 || group > MAX_GROUP || lanes % group || H < 1 || split < 1 || split > 2 ||
+      H * split > 16 || D % H || F % (H * split) || (D / H) % (vw * split) || (F / (H * split)) % vw ||
+      (head && (Vp % (vw * H * split) || Vp > D || v_real < 1 || v_real > Vp)))
+    return (int)cudaErrorInvalidValue;
+  if (bf16 != (int)(sizeof(Storage) == 2)) return (int)cudaErrorInvalidValue;  // the other library's storage type
+  return fill_and_launch<Storage>(ptrs, n_img, lanes, group, D, H, F, L, Tm, pos, lin_stride, split, Vp, v_real,
+                                  static_cast<cudaStream_t>(stream));
+}
+

@@ -24,17 +24,36 @@ With ``DecodeConfig.mega_mode == "1"`` and inside the envelope of kernel K3
 (2 <= K <= 4, Tm <= 128, max_len <= 64, vocab <= 128), the whole search runs
 in one launch instead (ops/kernels/decode_loop.py): every step, no early exit,
 the same tokens. Outside it the host loop runs, as in the JAX package.
+
+``DecodeConfig.head_mode == "1"`` (None reads ``KHMER_OCR_FUSED_HEAD``)
+fuses the decode head into the last layer's launch of kernel K2: it returns
+the log-probs itself (ops/kernels/decode_step.py::head_weights). Opt-in
+and beam-only, as in the JAX package; the tokens are the same. Where the
+head does not fit K2's launch (a padded vocabulary wider than D, or not
+split evenly over the CTAs: ``decode_step.head_fits``), the normal head
+runs, as the JAX package's ``head_fusion_compatible`` gates it.
+
+``model_group``: a tensor-parallel group over which the params are split.
+Each layer step is then K2's three blocks with an all-reduce after each,
+the logits are gathered over the group, and every rank runs the same
+search. K3 and the fused head stay off under a group of more than one rank
+(the whole decode in one launch leaves no point for a collective, and the
+head's vocabulary columns are split); the tokens are the same.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from ..config import DecodeConfig, ModelConfig
 from ..models.layers import NEG_INF
-from ..models.ocr_model import (EXIT_CHECK_EVERY, decode_step, decode_windows, init_decode_state,
+from ..models.ocr_model import (EXIT_CHECK_EVERY, decode_hidden, decode_step, decode_windows, init_decode_state,
                                 pack_decode_params)
 from ..ops.kernels.decode_loop import fused_beam_decode, should_use_megakernel
+from ..ops.kernels.decode_step import head_fits, head_weights
+from ..parallel.mesh import world_of
 
 _BIG = 2**30
 
@@ -114,23 +133,37 @@ def beam_answer(st: dict) -> torch.Tensor:
     return torch.where(has_done[:, None], st["best_done_tokens"], st["tokens"][:, 0])
 
 
+def use_fused_head(dec_cfg: DecodeConfig, model_cfg: ModelConfig, memory, model_group=None) -> bool:
+    """Whether beam_decode fuses the decode head into K2's last launch: the
+    switch is on, no model group splits the vocabulary, and the head fits
+    the launch K2 makes for this batch (``decode_step.head_fits``)."""
+    mode = dec_cfg.head_mode if dec_cfg.head_mode is not None else os.environ.get("KHMER_OCR_FUSED_HEAD")
+    b, tm, _ = memory.shape
+    return (mode == "1" and world_of(model_group)[1] == 1
+            and head_fits(b, dec_cfg.beam_width, model_cfg.num_heads, tm, model_cfg.emb_dim, model_cfg.vocab_size,
+                          memory.dtype))
+
+
 def beam_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
-                stats: dict | None = None):
+                stats: dict | None = None, model_group=None):
     """memory: (B, T, D). Returns the best tokens (B, max_len + 2), <sos> first.
-    ``stats`` (optional dict) receives "steps", the steps of the host loop, and
+    ``stats`` (optional dict) receives "steps", the steps of the host loop,
     "mega", the batches (0 or 1) decoded by the whole-decode path (one launch
-    of kernel K3 on the card)."""
+    of kernel K3 on the card), and, from the host loop, "head": whether the
+    head was fused."""
     b, tm, _ = memory.shape
     k = dec_cfg.beam_width
     max_len = dec_cfg.max_len
     # the whole decode in one launch inside its envelope, as the JAX package routes it
-    if should_use_megakernel(k, max_len, tm, model_cfg.vocab_size, mode=dec_cfg.mega_mode):
+    if should_use_megakernel(k, max_len, tm, model_cfg.vocab_size, mode=dec_cfg.mega_mode,
+                             model_ranks=world_of(model_group)[1]):
         if stats is not None:
             stats.update(steps=0, mega=1)
         return fused_beam_decode(params, memory, memory_pad_mask, model_cfg, dec_cfg)
 
     state = init_decode_state(params, memory, memory_pad_mask, model_cfg, lanes=k, cache_len=max_len)
     params = pack_decode_params(params)
+    head = head_weights(params["dec"]["out"]) if use_fused_head(dec_cfg, model_cfg, memory, model_group) else None
     cache_len = state["self_kv"][0][0].shape[1]
     st = beam_state(b, k, cache_len, dec_cfg, memory.device)
     bound_den = st["lens"][max_len] + 1.0
@@ -145,12 +178,19 @@ def beam_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, d
                     done = True
                     break
             cur = st["tokens"][:, :, pos].reshape(b * k)
-            logits = decode_step(params, state, cur, pos, model_cfg, window=w,
-                                 lineage_local=st["lineage"][:, :, :w].reshape(b * k, w).contiguous())
-            beam_advance(st, torch.log_softmax(logits.float(), dim=-1).reshape(b, k, -1), pos, dec_cfg)
+            lineage = st["lineage"][:, :, :w].reshape(b * k, w).contiguous()
+            if head is not None:
+                _, logp = decode_hidden(params, state, cur, pos, model_cfg, window=w, lineage_local=lineage,
+                                        head=head)
+                logp = logp[:, :head[2]]
+            else:
+                logits = decode_step(params, state, cur, pos, model_cfg, window=w, lineage_local=lineage,
+                                     model_group=model_group)
+                logp = torch.log_softmax(logits.float(), dim=-1)
+            beam_advance(st, logp.reshape(b, k, -1), pos, dec_cfg)
             pos += 1
         if done:
             break
     if stats is not None:
-        stats.update(steps=pos, mega=0)
+        stats.update(steps=pos, mega=0, head=int(head is not None))
     return beam_answer(st)

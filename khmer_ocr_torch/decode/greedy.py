@@ -5,7 +5,8 @@ at <eos>; finished lines keep stepping with their outputs frozen to <pad>. One
 loop per cache window; the batch exits once every line has finished (the
 test needs a device sync, so it runs every ``EXIT_CHECK_EVERY`` steps, which
 does not change the tokens). On the card each layer step is kernel K2 with
-one lane per image and no lineage.
+one lane per image and no lineage. The argmax is taken over the logits in
+float32. ``model_group``: a tensor-parallel group (see decode/beam.py).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..models.ocr_model import (EXIT_CHECK_EVERY, decode_step, decode_windows, i
 
 
 def greedy_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
-                  stats: dict | None = None):
+                  stats: dict | None = None, model_group=None):
     """memory: (B, T, D) -> tokens (B, max_len + 1) with the leading <sos>.
     ``stats`` (optional dict) receives "steps": the decode steps run."""
     stats = {} if stats is None else stats
@@ -35,8 +36,8 @@ def greedy_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig,
             if pos % EXIT_CHECK_EVERY == 0 and bool(finished.all()):
                 stats["steps"] = pos
                 return tokens
-            logits = decode_step(params, state, tokens[:, pos], pos, model_cfg, window=w)
-            nxt = torch.argmax(logits, dim=-1)
+            logits = decode_step(params, state, tokens[:, pos], pos, model_cfg, window=w, model_group=model_group)
+            nxt = torch.argmax(logits.float(), dim=-1)
             nxt = torch.where(finished, torch.full_like(nxt, dec_cfg.pad_idx), nxt)
             tokens[:, pos + 1] = nxt
             finished = finished | (nxt == dec_cfg.eos_idx)

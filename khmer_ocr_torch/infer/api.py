@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import threading
 
+from ..config import OCRConfig
 from .predictor import Predictor
 
 _LOCK = threading.Lock()
@@ -16,12 +17,12 @@ _PREDICTOR: Predictor | None = None
 _PREDICTOR_KEY: tuple | None = None
 
 
-def get_predictor(model_path=None, vocab_path=None, device=None) -> Predictor:
+def get_predictor(model_path=None, vocab_path=None, device=None, config: OCRConfig | None = None) -> Predictor:
     """The loaded predictor; ``model_path`` (any kind that
-    ``predictor.load_weights`` reads) loads or reloads it, ``None`` reuses
-    whatever is loaded."""
+    ``predictor.load_weights`` reads) loads or reloads it with ``config``,
+    ``None`` reuses whatever is loaded."""
     global _PREDICTOR, _PREDICTOR_KEY
-    key = (str(model_path), str(vocab_path), str(device))
+    key = (str(model_path), str(vocab_path), str(device), repr(config))
     with _LOCK:
         if _PREDICTOR is not None and (model_path is None or _PREDICTOR_KEY == key):
             return _PREDICTOR
@@ -29,9 +30,14 @@ def get_predictor(model_path=None, vocab_path=None, device=None) -> Predictor:
             raise FileNotFoundError("No model weights loaded: pass model_path= (.pth/.pt/.safetensors, an .npz "
                                     "of convert.from_jax.save_npz, a checkpoint or weights index directory) or "
                                     "call set_predictor()")
-        _PREDICTOR = Predictor(model_path=model_path, vocab_path=vocab_path, device=device)
+        _PREDICTOR = Predictor(model_path=model_path, vocab_path=vocab_path, device=device, config=config)
         _PREDICTOR_KEY = key
         return _PREDICTOR
+
+
+def reset_predictor() -> None:
+    """Drop the loaded predictor."""
+    set_predictor(None)
 
 
 def set_predictor(predictor: Predictor | None) -> None:

@@ -16,6 +16,16 @@ Data-parallel serving (``process_group``; parallel/mesh.py), the counterpart
 of the JAX package's ``Predictor(mesh=)``: every rank holds the weights,
 pads each bucket batch to a multiple of the world size, decodes its rows and
 gathers every rank's tokens, so each rank returns all the strings.
+
+``infer_batch`` is the device part of one bucket batch, the counterpart of
+the JAX package's ``_infer_jit``; under a tensor-parallel ``model_group`` it
+runs on one rank's part of the params (parallel/mesh.py).
+
+The serving speed mode: ``RuntimeConfig.compute_dtype="bfloat16"`` casts the
+params to bfloat16 (the BatchNorm statistics stay float32), so activations,
+caches and memory follow, and K2 and K3 run on bfloat16 storage;
+``matmul_precision`` other than "highest" lets the float32 work that remains
+use TF32.
 """
 
 from __future__ import annotations
@@ -49,9 +59,53 @@ def resolve_device(device=None) -> torch.device:
 def set_parity_mode() -> None:
     """Full float32 matmuls and convolutions (no TF32), the reference's
     parity mode (float32, "highest")."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    set_matmul_precision("highest")
+
+
+PRECISIONS = ("highest", "high", "default")
+
+
+def set_matmul_precision(precision: str) -> None:
+    """The JAX package's ``matmul_precision`` on torch's switches: "highest"
+    keeps float32 matmuls and convolutions in full float32 (TF32 off);
+    "high" and "default" let both use TF32. These switches are global to
+    the process: a Predictor sets its own at construction and again at
+    each call, so of two Predictors with different settings each call runs
+    under its own, and whatever runs between calls sees the last one set."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"matmul_precision {precision!r}: one of {PRECISIONS}")
+    tf32 = precision != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("highest" if not tf32 else "high")
+
+
+def cast_params(params, dtype):
+    """The params in ``dtype``, but for the BatchNorm statistics ("mean",
+    "var"), which stay float32 (the JAX package casts only its params
+    tree, not its batch_stats)."""
+    if isinstance(params, dict):
+        return {k: v if k in ("mean", "var") else cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [cast_params(v, dtype) for v in params]
+    return params.to(dtype) if params.is_floating_point() else params
+
+
+@torch.inference_mode()
+def infer_batch(params: dict, lines: torch.Tensor, counts: torch.Tensor, model_cfg: ModelConfig,
+                dec_cfg: DecodeConfig, chunk_geom: tuple[int, int], model_group=None, stats: dict | None = None):
+    """One bucket batch on the params' device: uint8 lines (B, H, Wb) and
+    chunk counts (B,) -> tokens (B, steps + 1 or + 2), normalised, cut into
+    windows, encoded and decoded (beam when ``dec_cfg.beam_width`` > 1) in
+    the params' dtype. ``model_group``: a tensor-parallel group, with
+    ``params`` this rank's part. ``stats`` receives the decode's counts."""
+    stats = {} if stats is None else stats
+    # the compute dtype follows the params (their patch projection's)
+    chunks = device_chunk(unit_normalize(u8_to_unit(lines)), chunk_geom).to(params["patch"]["proj"]["w"].dtype)
+    memory, pad_mask = encode(params, chunks, counts, model_cfg, model_group=model_group)
+    if dec_cfg.beam_width > 1:
+        return beam_decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group)
+    return greedy_decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group)
 
 
 def load_weights(model_path: str | Path, vocab_size: int | None = None):
@@ -110,7 +164,8 @@ class Predictor:
     dicts of numpy arrays), or ``model_path`` to any kind that
     ``load_weights`` reads. ``process_group``: serve data-parallel over the
     group, this rank on ``device``; every rank must call with the same
-    lines."""
+    lines. ``config.runtime.compute_dtype`` and ``matmul_precision`` pick
+    parity or speed mode (module docstring)."""
 
     def __init__(self, params=None, batch_stats=None, model_cfg: ModelConfig | None = None, device=None,
                  config: OCRConfig | None = None, vocab_path: str | Path | None = None,
@@ -118,8 +173,11 @@ class Predictor:
         self.device = resolve_device(device)
         self.group = process_group
         self._rank, self._world = world_of(process_group)
-        set_parity_mode()
         self.config = config or OCRConfig()
+        rt = self.config.runtime
+        if rt.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {rt.compute_dtype!r}: float32 or bfloat16")
+        set_matmul_precision(rt.matmul_precision)
         self.tokenizer = Tokenizer(vocab_path)
         if model_path is not None:
             params, batch_stats, saved_cfg = load_weights(model_path, vocab_size=len(self.tokenizer))
@@ -129,11 +187,14 @@ class Predictor:
         self.model_cfg = model_cfg or self.config.model
         self.params = params_from_jax(params, batch_stats if batch_stats is not None else {}, self.model_cfg,
                                       device=self.device)
+        if rt.compute_dtype == "bfloat16":
+            self.params = cast_params(self.params, torch.bfloat16)
         self.preprocessor = Preprocessor(self.config.preprocess, self.config.runtime)
         pre = self.config.preprocess
         self._chunk_geom = (pre.chunk_width, pre.chunk_stride)
         self.decode_steps = 0  # host-loop decode steps run since construction (all batches)
         self.mega_batches = 0  # beam batches decoded by the whole-decode path (one K3 launch each)
+        self.head_batches = 0  # beam batches whose decode head ran inside K2's last launch
 
     def _dec_cfg(self, beam_width: int, max_len: int | None) -> DecodeConfig:
         cap = self.model_cfg.decode_max_len
@@ -143,7 +204,8 @@ class Predictor:
             sos_idx=self.tokenizer.sos_idx,
             eos_idx=self.tokenizer.eos_idx,
             pad_idx=self.tokenizer.pad_idx,
-            mega_mode=os.environ.get("KHMER_OCR_MEGA_DECODE"),  # snapshot per call
+            mega_mode=os.environ.get("KHMER_OCR_MEGA_DECODE"),  # snapshots per call
+            head_mode=os.environ.get("KHMER_OCR_FUSED_HEAD"),
         )
 
     def _to_device_batch(self, batch: PreparedBatch):
@@ -168,17 +230,14 @@ class Predictor:
     @torch.inference_mode()
     def decode_prepared(self, batch: PreparedBatch, beam_width: int, max_len: int | None = None) -> np.ndarray:
         """One bucket batch -> tokens (B, steps + 1 or + 2) on the host."""
+        set_matmul_precision(self.config.runtime.matmul_precision)
         dec_cfg = self._dec_cfg(beam_width, max_len)
         lines, counts, b = self._to_device_batch(batch)
-        chunks = device_chunk(unit_normalize(u8_to_unit(lines)), self._chunk_geom)
-        memory, pad_mask = encode(self.params, chunks, counts, self.model_cfg)
         stats: dict = {}
-        if dec_cfg.beam_width > 1:
-            tokens = beam_decode(self.params, memory, pad_mask, self.model_cfg, dec_cfg, stats=stats)
-        else:
-            tokens = greedy_decode(self.params, memory, pad_mask, self.model_cfg, dec_cfg, stats=stats)
+        tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats)
         self.decode_steps += stats["steps"]
         self.mega_batches += stats.get("mega", 0)
+        self.head_batches += stats.get("head", 0)
         if self._world > 1:
             tokens = gather_rows(tokens, self.group)
         return tokens[:b].cpu().numpy()
@@ -202,3 +261,24 @@ class Predictor:
 
     def predict(self, image_input, beam_width: int = 3, max_len: int | None = None) -> str:
         return self.predict_batch([image_input], beam_width=beam_width, max_len=max_len)[0]
+
+    def warmup(self, beam_widths=(1, 3), batch_size: int | None = None,
+               chunk_buckets: tuple[int, ...] | None = None) -> None:
+        """Run the serving shapes once before the first request: ``batch_size``
+        white lines (default: the largest batch bucket) of each chunk bucket
+        (default: the first four, lines up to about 8 chunks) through
+        ``predict_batch`` at each beam width. On the card this builds the
+        kernels on a cold ``_build/`` and loads them, and lets cuDNN pick
+        its algorithms for those shapes. One pass is enough: the port
+        compiles no per-shape programs and forms no batch groups, where the
+        JAX package runs each workload twice so its group programs compile."""
+        rt = self.config.runtime
+        bsz = batch_size or max(rt.batch_buckets)
+        buckets = chunk_buckets or rt.chunk_buckets[:4]
+        cw, stride = self._chunk_geom
+        h = self.config.preprocess.img_height
+        imgs = []
+        for nb in buckets:
+            imgs += [np.full((h, (nb - 1) * stride + cw), 255, np.uint8)] * bsz
+        for bw in beam_widths:
+            self.predict_batch(imgs, beam_width=bw, batch_size=bsz)

@@ -66,8 +66,10 @@ def batch_norm(p: dict, s: dict, x: torch.Tensor, train: bool = False, group=Non
         y = F.batch_norm(x, new_s["mean"], new_s["var"], p["scale"], p["bias"], training=True,
                          momentum=BN_MOMENTUM, eps=BN_EPS)
         return y, new_s
-    inv = torch.rsqrt(s["var"] + BN_EPS) * p["scale"]
-    return (x - s["mean"][:, None, None]) * inv[:, None, None] + p["bias"][:, None, None], s
+    # the float32 statistics in x's dtype, as the JAX package casts them (the identity in float32)
+    mean, var = s["mean"].to(x.dtype), s["var"].to(x.dtype)
+    inv = torch.rsqrt(var + BN_EPS) * p["scale"]
+    return (x - mean[:, None, None]) * inv[:, None, None] + p["bias"][:, None, None], s
 
 
 def conv_bn_relu(p: dict, s: dict, name: str, x: torch.Tensor, train: bool, ns: dict, group=None) -> torch.Tensor:

@@ -13,6 +13,10 @@ Where autograd records (training), the recurrence goes through
 ``LSTMRecurrence`` (the forward with cell states, then kernel K1b's adjoint
 on the card); otherwise through the forward alone. The device picks kernel
 or plain version, so there is no switch between the two.
+
+In bfloat16 (the serving speed mode) the recurrence runs in float32, as the
+JAX package runs its kernel: the input gates and W_hh are widened, and h is
+rounded back to the input's dtype.
 """
 
 from __future__ import annotations
@@ -56,5 +60,9 @@ def bilstm_apply(p: dict, x: torch.Tensor, lengths: torch.Tensor | None = None) 
     else:
         flip = lambda y: flip_within_length(y, lengths)
     xg = torch.stack([input_gates(p["fw"], x), input_gates(p["bw"], flip(x))])
-    h = _recurrence(xg, torch.stack([p["fw"]["w_hh"], p["bw"]["w_hh"]]))
+    w_hh = torch.stack([p["fw"]["w_hh"], p["bw"]["w_hh"]])
+    if xg.dtype in (torch.bfloat16, torch.float16):
+        h = _recurrence(xg.float(), w_hh.float()).to(xg.dtype)
+    else:
+        h = _recurrence(xg, w_hh)
     return torch.cat([h[0], flip(h[1])], dim=-1)

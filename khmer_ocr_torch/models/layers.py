@@ -14,6 +14,14 @@ before, op for op.
 updates the self-attention caches in place at slot ``pos``. On the card the
 decode loop runs the hand-written kernel instead (ops/kernels/decode_step.py),
 which is held against this function.
+
+``model_group`` (``mha``, ``ffn``, ``encoder_layer``, ``decoder_layer``):
+a tensor-parallel process group over which the params are split
+(parallel/placement.py). Each rank then holds its heads' columns of q, k,
+v and the matching rows of ``o``, its columns of ``lin1`` and rows of
+``lin2`` (with the biases of the split columns); the partial sums of the
+row-split products are all-reduced before their bias (parallel/mesh.py).
+Without a group, or with a group of one rank, nothing changes.
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..parallel.mesh import copy_to_model, reduce_from_model, tp_active, world_of
 
 NEG_INF = -1e30  # finite stand-in for -inf; masked softmax weights underflow to exactly 0
 LN_EPS = 1e-5
@@ -70,10 +80,16 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def mha(p: dict, num_heads: int, q_in, kv_in, key_padding_mask=None, causal: bool = False, drop=None):
+def mha(p: dict, num_heads: int, q_in, kv_in, key_padding_mask=None, causal: bool = False, drop=None,
+        model_group=None):
     """Multi-head attention. key_padding_mask: (B, Tk) bool, True = padding;
     ``causal`` masks keys after each query (Tq == Tk); ``drop`` applies to
-    the attention weights."""
+    the attention weights. Under ``model_group``: this rank's heads."""
+    if tp_active(model_group):
+        same = kv_in is q_in
+        q_in = copy_to_model(q_in, model_group)
+        kv_in = q_in if same else copy_to_model(kv_in, model_group)
+        num_heads //= world_of(model_group)[1]
     q = _split_heads(dense(p["q"], q_in), num_heads)
     k = _split_heads(dense(p["k"], kv_in), num_heads)
     v = _split_heads(dense(p["v"], kv_in), num_heads)
@@ -88,32 +104,44 @@ def mha(p: dict, num_heads: int, q_in, kv_in, key_padding_mask=None, causal: boo
     w = torch.softmax(logits, dim=-1)
     if drop is not None:
         w = drop(w)
-    return dense(p["o"], _merge_heads(torch.einsum("bhqk,bhkd->bhqd", w, v)))
+    return _out_proj(p["o"], _merge_heads(torch.einsum("bhqk,bhkd->bhqd", w, v)), model_group)
 
 
-def ffn(p: dict, x: torch.Tensor, drop=None) -> torch.Tensor:
+def _out_proj(p: dict, x: torch.Tensor, model_group) -> torch.Tensor:
+    """``dense(p, x)``; under a model group x holds this rank's rows of the
+    product, whose partial sums are all-reduced before the bias."""
+    if tp_active(model_group):
+        return reduce_from_model(x @ p["w"], model_group) + p["b"]
+    return dense(p, x)
+
+
+def ffn(p: dict, x: torch.Tensor, drop=None, model_group=None) -> torch.Tensor:
+    if tp_active(model_group):
+        x = copy_to_model(x, model_group)
     h = torch.relu(dense(p["lin1"], x))
     if drop is not None:
         h = drop(h)
-    return dense(p["lin2"], h)
+    return _out_proj(p["lin2"], h, model_group)
 
 
-def encoder_layer(p: dict, num_heads: int, x: torch.Tensor, drop=None) -> torch.Tensor:
+def encoder_layer(p: dict, num_heads: int, x: torch.Tensor, drop=None, model_group=None) -> torch.Tensor:
     d = drop or _identity
-    x = layer_norm(p["ln1"], x + d(mha(p["self"], num_heads, x, x, drop=drop)))
-    return layer_norm(p["ln2"], x + d(ffn(p, x, drop)))
+    x = layer_norm(p["ln1"], x + d(mha(p["self"], num_heads, x, x, drop=drop, model_group=model_group)))
+    return layer_norm(p["ln2"], x + d(ffn(p, x, drop, model_group)))
 
 
 def decoder_layer(p: dict, num_heads: int, x, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
-                  drop=None):
+                  drop=None, model_group=None):
     """Teacher-forced decoder layer: causal, padding-masked self-attention,
     cross-attention over the memory, FFN; post-LN."""
     d = drop or _identity
-    sa = mha(p["self"], num_heads, x, x, key_padding_mask=tgt_key_padding_mask, causal=True, drop=drop)
+    sa = mha(p["self"], num_heads, x, x, key_padding_mask=tgt_key_padding_mask, causal=True, drop=drop,
+             model_group=model_group)
     x = layer_norm(p["ln1"], x + d(sa))
-    ca = mha(p["cross"], num_heads, x, memory, key_padding_mask=memory_key_padding_mask, drop=drop)
+    ca = mha(p["cross"], num_heads, x, memory, key_padding_mask=memory_key_padding_mask, drop=drop,
+             model_group=model_group)
     x = layer_norm(p["ln2"], x + d(ca))
-    return layer_norm(p["ln3"], x + d(ffn(p, x, drop)))
+    return layer_norm(p["ln3"], x + d(ffn(p, x, drop, model_group)))
 
 
 def pack_step_params(p: dict) -> dict:

@@ -1,11 +1,15 @@
-"""First-use g++ build and ctypes binding of the batched edit distance.
+"""First-use g++ builds of the host's native code, and the ctypes binding of
+the batched edit distance.
 
-``levenshtein.cpp`` exposes a plain C function; it compiles once with g++
-into ``khmer_ocr_torch/_build/``, named by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. Without
-g++, or when the build fails, ``load_native_library`` raises: nothing falls
-back to the numpy DP of ``metrics.levenshtein`` (the tests hold the two
-equal).
+Each source exposes plain C functions and compiles once with g++ into
+``khmer_ocr_torch/_build/`` (``build_library``), named by a hash of the
+source and the flags, so an edited source rebuilds and an unchanged one is
+reused; a build writes to a name of its own process and renames it into
+place, so processes that build at once never share a file. For
+``levenshtein.cpp``, without g++ or when the build fails,
+``load_native_library`` raises: nothing falls back to the numpy DP of
+``metrics.levenshtein`` (the tests hold the two equal). The image loader
+(imageio.py) builds through the same function.
 """
 
 from __future__ import annotations
@@ -27,9 +31,29 @@ _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0" + _SRC.read_bytes())
-    return BUILD_DIR / f"levenshtein-{h.hexdigest()[:16]}.so"
+def library_path(src: Path = _SRC, link: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS + link).encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_library(src: Path, link: tuple[str, ...] = ()) -> Path:
+    """The shared library of ``src`` (linked with ``link``), built with g++
+    if it is not built yet; raises when g++ is missing or the build fails."""
+    so_path = library_path(src, link)
+    if so_path.exists():
+        return so_path
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: native/{src.name} is built with g++ at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    done = subprocess.run([gxx, *GXX_FLAGS, str(src), *link, "-o", str(tmp)], capture_output=True, text=True,
+                          timeout=300)
+    if done.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {src.name} failed (g++ exit {done.returncode}):\n{done.stderr}")
+    os.replace(tmp, so_path)
+    return so_path
 
 
 def load_native_library() -> ctypes.CDLL:
@@ -39,20 +63,7 @@ def load_native_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so_path = library_path()
-        if not so_path.exists():
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: the batched edit distance (native/levenshtein.cpp) is built "
-                                   "with g++ at first use")
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-            done = subprocess.run([gxx, *GXX_FLAGS, str(_SRC), "-o", str(tmp)], capture_output=True, text=True,
-                                  timeout=300)
-            if done.returncode != 0:
-                raise RuntimeError(f"building {_SRC.name} failed (g++ exit {done.returncode}):\n{done.stderr}")
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(str(so_path))
+        lib = ctypes.CDLL(str(build_library(_SRC)))
         lib.levenshtein_batch.argtypes = [
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int64),

@@ -2,10 +2,13 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain ``extern "C"`` launcher (no PyTorch headers, so a
-build takes seconds). Libraries land in ``khmer_ocr_torch/_build/``, named by
-a hash of the source, the ``csrc/`` headers it includes and the flags, so an
-edited source or header rebuilds and an unchanged one is reused. ``build()``
-starts one ``nvcc`` per missing library, all at once, and waits for them.
+build takes seconds). The decoder kernels' sources build twice, once per
+storage type: the ``*_bf16`` libraries with ``-DSTORAGE_BF16``, so each
+nvcc instantiates half the templates and the two run in parallel.
+Libraries land in ``khmer_ocr_torch/_build/``, named by a hash of the
+source, the ``csrc/`` headers it includes and the flags, so an edited source
+or header rebuilds and an unchanged one is reused. ``build()`` starts one
+``nvcc`` per missing library, all at once, and waits for them.
 """
 
 from __future__ import annotations
@@ -27,7 +30,11 @@ SOURCES = {
     "lstm_recurrence": "lstm_recurrence.cu",
     "lstm_backward": "lstm_backward.cu",
     "decoder_layer_step": "decoder_layer_step.cu",
+    "decoder_layer_step_bf16": "decoder_layer_step.cu",
+    "decoder_block": "decoder_block.cu",
+    "decoder_block_bf16": "decoder_block.cu",
     "decode_loop": "decode_loop.cu",
+    "decode_loop_bf16": "decode_loop.cu",
     "smem_probe": "smem_probe.cu",
 }
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -70,8 +77,18 @@ def source_files(name: str) -> list[Path]:
     return files
 
 
+def extra_flags(name: str) -> tuple[str, ...]:
+    return ("-DSTORAGE_BF16",) if name.endswith("_bf16") else ()
+
+
+def library_name(name: str, dtype) -> str:
+    """The library of kernel ``name`` for tensors of ``dtype`` (a torch
+    dtype): the ``_bf16`` build for bfloat16, else the float one."""
+    return f"{name}_bf16" if str(dtype) == "torch.bfloat16" else name
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra_flags(name)).encode())
     for f in source_files(name):
         h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -92,7 +109,7 @@ def build(names=None) -> dict[str, float]:
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags(name), "-o", str(tmp), str(CSRC_DIR / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                        tmp, out)
     seconds, failed = {}, []

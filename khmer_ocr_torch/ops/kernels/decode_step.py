@@ -1,24 +1,49 @@
 """One decoder layer at one decode position: CUDA kernel K2
-(``csrc/decoder_layer_step.cu``) and its plain PyTorch version.
+(``csrc/decoder_layer_step.cu``), its tensor-parallel blocks
+(``csrc/decoder_block.cu``) and their plain PyTorch versions.
 
 ``decoder_layer_step(weights, x, pos, self_k, self_v, mem_k, mem_v,
-mem_valid_f, lineage, num_heads=, window=, lanes=)`` returns the layer output
-(B, D) and writes this position's k and v IN PLACE into ``self_k``/``self_v``
-at slot ``pos``; no other cache slot changes. ``weights`` is the dict of
-``layer_weights``. ``lineage`` (B, window) int32 holds image-local beam
-parents (None for greedy); slot ``pos`` reads the lane itself whatever the
-table says. Any number of lanes: the kernel runs one thread-block cluster
-per image and group of its lanes (``geometry.k2_geometry``), one CTA per
-attention head. A CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises.
+mem_valid_f, lineage, num_heads=, window=, lanes=, head=)`` returns the layer
+output (B, D) and writes this position's k and v IN PLACE into
+``self_k``/``self_v`` at slot ``pos``; no other cache slot changes.
+``weights`` is the dict of ``layer_weights``. ``lineage`` (B, window) int32
+holds image-local beam parents (None for greedy); slot ``pos`` reads the lane
+itself whatever the table says. Any number of lanes: the kernel runs one
+thread-block cluster per image and group of its lanes
+(``geometry.k2_geometry``), one CTA per attention head.
+
+Storage type: x, the caches, the memory K/V and the weight matrices are
+all float32 or all bfloat16 (the serving speed mode); biases, LayerNorm
+parameters and ``mem_valid_f`` are float32 either way (``layer_weights``
+widens them). In bfloat16 every product's input is rounded to bfloat16 and
+every sum is float32, as in the TPU kernel (``_dot``); q, k, v and the
+cross q are rounded where they are made, the attention weights before the
+weighted sum of V, and the output.
+
+``head=(out_w (D, Vp) in the storage type, out_b (Vp,) float32, v_real)``
+(``head_weights``) also returns the log-probs (B, Vp) float32 of the decode
+head: the logits rounded to the storage type, the bias rounded to it added
+and the sum rounded again, then a log-softmax over the first ``v_real``
+columns; the others are NEG_INF.
+
+``decoder_block(kind, ...)`` is one of the three launches a layer takes
+under a tensor-parallel model group ("self", "cross", "ffn", and "finish"
+for the last layer's LayerNorm), each returning the block's residual and
+its (B, D) partial sum for the caller to all-reduce
+(models/ocr_model.py::tp_layer_step).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
+from ...models.layers import NEG_INF, layer_norm
 from ...models.layers import decoder_layer_step as _layer_step_plain
 from . import build
 from .geometry import MAX_CLUSTER, SMEM_LIMIT, k2_geometry
@@ -29,17 +54,27 @@ WEIGHT_FIELDS = (
     "l1_w", "l1_b", "l2_w", "l2_b", "ln3_s", "ln3_b",
 )
 
-launches = 0  # kernel launches since the last reset_launches()
+MATRIX_FIELDS = ("qkv_w", "so_w", "cq_w", "co_w", "l1_w", "l2_w")  # in the storage type; the rest float32
+BLOCK_KINDS = {"finish": 0, "self": 1, "cross": 2, "ffn": 3}
+HEAD_COLS = 128  # the head's vocabulary padded to a multiple of this, as the TPU kernel pads it
+
+# kernel launches since the last reset_launches(): every K2 launch, then those in bfloat16 and those with the
+# head among them, and the tensor-parallel blocks' launches
+launches = 0
+bf16_launches = 0
+head_launches = 0
+block_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bf16_launches, head_launches, block_launches
+    launches = bf16_launches = head_launches = block_launches = 0
 
 
 def layer_weights(lp: dict) -> dict:
     """A packed decoder layer (models/layers.py::pack_step_params) as the
-    kernel's 18 contiguous operands."""
+    kernel's 18 contiguous operands: the matrices in their dtype, the
+    vectors widened to float32."""
     src = {
         "qkv_w": lp["self_qkv"]["w"], "qkv_b": lp["self_qkv"]["b"],
         "so_w": lp["self"]["o"]["w"], "so_b": lp["self"]["o"]["b"],
@@ -51,7 +86,109 @@ def layer_weights(lp: dict) -> dict:
         "l2_w": lp["lin2"]["w"], "l2_b": lp["lin2"]["b"],
         "ln3_s": lp["ln3"]["scale"], "ln3_b": lp["ln3"]["bias"],
     }
-    return {k: v.contiguous() for k, v in src.items()}
+    return {k: (v if k in MATRIX_FIELDS else v.float()).contiguous() for k, v in src.items()}
+
+
+def head_weights(out: dict) -> tuple:
+    """The decode head's operands from the vocabulary projection ``out``
+    ({"w" (D, V), "b" (V,)}): (out_w (D, Vp) in the weight's dtype, out_b
+    (Vp,) float32, V), Vp = V padded with zeros to a multiple of
+    ``HEAD_COLS``."""
+    w, b = out["w"], out["b"]
+    d, v = w.shape
+    vp = HEAD_COLS * -(-v // HEAD_COLS)
+    hw = torch.zeros(d, vp, dtype=w.dtype, device=w.device)
+    hw[:, :v] = w
+    hb = torch.zeros(vp, dtype=torch.float32, device=w.device)
+    hb[:v] = b
+    return hw, hb, v
+
+
+def head_columns_fit(vp: int, d: int, num_heads: int, split: int, itemsize: int) -> bool:
+    """Whether the kernel can fuse a head of ``vp`` padded columns: at most
+    D of them (the head's weight tile shares the layer's), split evenly
+    into vectors of 16 bytes over the cluster's num_heads x split CTAs."""
+    return vp <= d and vp % ((16 // itemsize) * num_heads * split) == 0
+
+
+def head_fits(n_img: int, lanes: int, num_heads: int, tm: int, d: int, vocab: int, dtype) -> bool:
+    """Whether a launch of these shapes (``k2_geometry``'s CTAs a head) can
+    fuse the decode head of ``vocab`` columns in ``dtype``; the decode runs
+    the normal head where it cannot, as the JAX package gates its head
+    (``head_fusion_compatible``)."""
+    split = k2_geometry(n_img, lanes, num_heads, tm)[2] // num_heads
+    return head_columns_fit(HEAD_COLS * -(-vocab // HEAD_COLS), d, num_heads, split, dtype.itemsize)
+
+
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 ``x`` rounded to ``dtype`` and widened back (the identity for float32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (float32 values) @ w with x rounded to w's dtype and float32 sums."""
+    return x @ w if w.dtype == torch.float32 else _round(x, w.dtype) @ w.float()
+
+
+def _attend(q: torch.Tensor, k, v, valid, num_heads: int, dtype) -> torch.Tensor:
+    """Attention of the query rows q (N, K, DA) float32 over keys and values
+    (N, T, DA) shared by the K rows of each N, masked by valid (N, T) bool,
+    over ``num_heads`` heads of DA/num_heads columns -> (N, K, DA) float32.
+    In float32 the softmax's weights multiply V; in a lower ``dtype`` the
+    unnormalised weights exp(logit - max) are rounded to it first and the
+    sum is divided by theirs, as the kernels do."""
+    n, kk, da = q.shape
+    t = k.shape[1]
+    hd = da // num_heads
+    kh = k.float().reshape(n, t, num_heads, hd)
+    vh = v.float().reshape(n, t, num_heads, hd)
+    logits = torch.einsum("nkhe,nthe->ntkh", q.reshape(n, kk, num_heads, hd), kh) / math.sqrt(hd)
+    logits = logits.masked_fill(~valid[:, :, None, None], NEG_INF)
+    if dtype == torch.float32:
+        out = torch.einsum("ntkh,nthe->nkhe", torch.softmax(logits, dim=1), vh)
+    else:
+        e = torch.exp(logits - logits.max(dim=1, keepdim=True).values).masked_fill(~valid[:, :, None, None], 0.0)
+        out = torch.einsum("ntkh,nthe->nkhe", _round(e, dtype), vh) / e.sum(dim=1)[..., None]
+    return out.reshape(n, kk, da)
+
+
+def _self_rows(self_k, self_v, x, pos, lineage, window, lanes):
+    """The (B, window, DA) keys and values each row reads, through the
+    lineage (image-local parents; slot pos is the row itself), and which
+    slots are attendable."""
+    b = x.shape[0]
+    w = min(window, self_k.shape[1])
+    rows = torch.arange(b, device=x.device)[:, None]
+    t = torch.arange(w, device=x.device)[None, :]
+    idx = rows.expand(b, w)
+    if lineage is not None:
+        idx = torch.where(t == pos, rows, lineage[:, :w].long() + lanes * (rows // lanes))
+    return self_k[idx, t], self_v[idx, t], (t <= pos).expand(b, w)
+
+
+def _layer_step_lowp(wt, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, num_heads, window, lanes):
+    """The layer step in a storage type below float32, with the kernel's
+    rounding points: the tensor-parallel blocks of one rank holding every
+    head, the partial sums whole."""
+    kw = dict(num_heads=num_heads, window=window, lanes=lanes, dtype=x.dtype)
+    xr, part = decoder_block_plain("self", wt, x, None, pos, self_k, self_v, lineage=lineage, **kw)
+    xr, part = decoder_block_plain("cross", wt, xr, part, mem_k=mem_k, mem_v=mem_v, mem_valid_f=mem_valid_f,
+                                   prologue=(wt["so_b"], wt["ln1_s"], wt["ln1_b"]), **kw)
+    xr, part = decoder_block_plain("ffn", wt, xr, part, prologue=(wt["co_b"], wt["ln2_s"], wt["ln2_b"]), **kw)
+    xr, _ = decoder_block_plain("finish", wt, xr, part, prologue=(wt["l2_b"], wt["ln3_s"], wt["ln3_b"]),
+                                round_x=True, **kw)
+    return xr.to(x.dtype)
+
+
+def decode_head_plain(x: torch.Tensor, head) -> torch.Tensor:
+    """The decode head on the layer output x (B, D): (B, Vp) float32 log-probs."""
+    hw, hb, v_real = head
+    cdt = hw.dtype
+    lg = _round(_round(_dot(x.float(), hw), cdt) + _round(hb, cdt), cdt)
+    real = torch.arange(hw.shape[1], device=x.device) < v_real
+    lg = lg.masked_fill(~real, NEG_INF)
+    lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+    return (lg - lse).masked_fill(~real, NEG_INF)
 
 
 def _layer_params(wt: dict) -> dict:
@@ -71,9 +208,15 @@ def _layer_params(wt: dict) -> dict:
 
 
 def decoder_layer_step_plain(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage=None, *,
-                             num_heads: int, window: int, lanes: int = 1):
-    """The plain decode step (models/layers.py::decoder_layer_step) with the
-    lineage turned into absolute rows, slot ``pos`` patched to self."""
+                             num_heads: int, window: int, lanes: int = 1, head=None):
+    """The plain decode step (models/layers.py::decoder_layer_step in
+    float32, ``_layer_step_lowp`` in bfloat16) with the lineage turned into
+    absolute rows, slot ``pos`` patched to self; with ``head`` also its
+    log-probs."""
+    if x.dtype != torch.float32:
+        out = _layer_step_lowp(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, num_heads,
+                               window, lanes)
+        return out if head is None else (out, decode_head_plain(out, head))
     b = x.shape[0]
     w = min(window, self_k.shape[1])
     idx = None
@@ -83,41 +226,53 @@ def decoder_layer_step_plain(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_
         idx = torch.where(torch.arange(w, device=x.device)[None, :] == pos, rows, lin_abs)
     out, _, _ = _layer_step_plain(_layer_params(weights), num_heads, x, pos, self_k, self_v, mem_k, mem_v,
                                   mem_valid_f > 0, window=w, lineage_idx=idx)
-    return out
+    return out if head is None else (out, decode_head_plain(out, head))
 
 
 def decoder_layer_step(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage=None, *,
-                       num_heads: int, window: int, lanes: int = 1):
+                       num_heads: int, window: int, lanes: int = 1, head=None):
     if x.device.type == "cpu":
         return decoder_layer_step_plain(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
-                                        num_heads=num_heads, window=window, lanes=lanes)
+                                        num_heads=num_heads, window=window, lanes=lanes, head=head)
     return decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
-                                     num_heads=num_heads, window=window, lanes=lanes)
+                                     num_heads=num_heads, window=window, lanes=lanes, head=head)
+
+
+def _check_operands(name: str, tensors: dict, device, storage: set, cdt) -> None:
+    """Every operand a contiguous, 16-byte aligned CUDA tensor on ``device``:
+    the ``storage`` keys of dtype ``cdt``, "lineage" int32, the rest float32."""
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if not t.is_cuda or t.device != device:
+            raise RuntimeError(f"{name}: {key} must be a CUDA tensor on {device}, got {t.device}")
+        want = torch.int32 if key == "lineage" else cdt if key in storage else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be contiguous and 16-byte aligned")
 
 
 def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage=None, *,
-                              num_heads: int, window: int, lanes: int = 1, split: int | None = None):
+                              num_heads: int, window: int, lanes: int = 1, split: int | None = None, head=None):
     """The kernel on CUDA tensors, with ``geometry.k2_geometry``'s CTAs per
     head or ``split`` (1 or 2) if given."""
-    global launches
+    global launches, bf16_launches, head_launches
     name = "decoder_layer_step"
+    cdt = x.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got {cdt}")
+    vw = 16 // cdt.itemsize
     b, d = x.shape
     n_img, tm, _ = mem_k.shape
     cache_len = self_k.shape[1]
     f = weights["l1_w"].shape[1]
     w = min(window, cache_len)
+    head_w, head_b, v_real = head if head is not None else (None, None, 0)
     tensors = {"x": x, "self_k": self_k, "self_v": self_v, "mem_k": mem_k, "mem_v": mem_v,
-               "mem_valid_f": mem_valid_f, **weights}
-    if lineage is not None:
-        tensors["lineage"] = lineage
-    for key, t in tensors.items():
-        if not t.is_cuda or t.device != x.device:
-            raise RuntimeError(f"{name}: {key} must be a CUDA tensor on {x.device}, got {t.device}")
-        want = torch.int32 if key == "lineage" else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be contiguous and 16-byte aligned")
+               "mem_valid_f": mem_valid_f, "lineage": lineage, "head_w": head_w, "head_b": head_b, **weights}
+    _check_operands(name, tensors, x.device, {"x", "self_k", "self_v", "mem_k", "mem_v", "head_w", *MATRIX_FIELDS},
+                    cdt)
     expect = {
         "self_k": (b, cache_len, d), "self_v": (b, cache_len, d), "mem_k": (n_img, tm, d),
         "mem_v": (n_img, tm, d), "mem_valid_f": (n_img, tm),
@@ -127,6 +282,10 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     }
     if lineage is not None:
         expect["lineage"] = (b, w)
+    vp = 0
+    if head is not None:
+        vp = head_w.shape[1]
+        expect.update(head_w=(d, vp), head_b=(vp,))
     for key, shape in expect.items():
         if tuple(tensors[key].shape) != shape:
             raise ValueError(f"{name}: {key} has shape {tuple(tensors[key].shape)}, expected {shape}")
@@ -134,25 +293,164 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
         raise ValueError(f"{name}: {b} rows are not {n_img} images x {lanes} lanes")
     group, _, ctas = k2_geometry(n_img, lanes, num_heads, tm)
     split = ctas // num_heads if split is None else split
-    if split not in (1, 2) or num_heads * split > MAX_CLUSTER or d % num_heads or (d // num_heads) % (4 * split) \
-            or f % (num_heads * split) or (f // (num_heads * split)) % 4:
+    if split not in (1, 2) or num_heads * split > MAX_CLUSTER or d % num_heads or (d // num_heads) % (vw * split) \
+            or f % (num_heads * split) or (f // (num_heads * split)) % vw:
         raise ValueError(f"{name}: D={d}, F={f}, heads={num_heads}, {split} CTA(s) a head (needs at most "
-                         f"{MAX_CLUSTER} CTAs, D/(heads x split) and F/(heads x split) multiples of 4)")
+                         f"{MAX_CLUSTER} CTAs, D/(heads x split) and F/(heads x split) multiples of {vw})")
+    if head is not None and not (head_columns_fit(vp, d, num_heads, split, cdt.itemsize) and 1 <= v_real <= vp):
+        raise ValueError(f"{name}: the head's {vp} columns must be a multiple of {vw * num_heads * split} and at "
+                         f"most D={d}, with 1 <= v_real={v_real} <= {vp}")
     if not 0 <= pos < w:
         raise ValueError(f"{name}: pos {pos} outside the window {w}")
-    lib = build.load(name)
-    smem = lib.decoder_layer_step_smem_bytes(group, d, num_heads, f, split)
+    lib = build.load(build.library_name(name, cdt))
+    smem = lib.decoder_layer_step_smem_bytes(group, d, num_heads, f, split, vw)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} bytes of shared memory, more than {SMEM_LIMIT}")
     out = torch.empty_like(x)
-    ptrs = [x, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, *(weights[k] for k in WEIGHT_FIELDS), out]
+    logp = None if head is None else torch.empty(b, vp, dtype=torch.float32, device=x.device)
+    ptrs = [x, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, *(weights[k] for k in WEIGHT_FIELDS), out,
+            head_w, head_b, logp]
     arr = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     fn = lib.decoder_layer_step_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(ctypes.cast(arr, ctypes.c_void_p), n_img, lanes, group, d, num_heads, f, cache_len, tm, pos, w, split,
-             stream)
+             int(cdt == torch.bfloat16), vp, v_real, stream)
     build.check(err, name)
     launches += 1
-    return out
+    bf16_launches += int(cdt == torch.bfloat16)
+    head_launches += int(head is not None)
+    return out if head is None else (out, logp)
+
+
+_BLOCK_WEIGHTS = {"self": ("qkv_w", "qkv_b", "so_w"), "cross": ("cq_w", "cq_b", "co_w"),
+                  "ffn": ("l1_w", "l1_b", "l2_w"), "finish": ()}
+
+
+def decoder_block_plain(kind, weights, x, part=None, pos=0, self_k=None, self_v=None, mem_k=None, mem_v=None,
+                        mem_valid_f=None, lineage=None, *, num_heads: int, window: int = 1, lanes: int = 1,
+                        prologue=None, round_x: bool = False, dtype=torch.float32):
+    """One tensor-parallel block of the local heads (see ``decoder_block``)."""
+    xf = x.float()
+    if part is not None:
+        pb, ln_s, ln_b = prologue
+        xf = layer_norm({"scale": ln_s, "bias": ln_b}, xf + (part + pb))
+    if round_x:
+        xf = _round(xf, dtype)
+    if kind == "finish":
+        return xf, None
+    b = xf.shape[0]
+    if kind == "self":
+        da = weights["qkv_w"].shape[1] // 3
+        qkv = _round(_dot(xf, weights["qkv_w"]) + weights["qkv_b"], dtype)
+        self_k[:, pos] = qkv[:, da:2 * da].to(self_k.dtype)
+        self_v[:, pos] = qkv[:, 2 * da:].to(self_v.dtype)
+        k_read, v_read, valid = _self_rows(self_k, self_v, xf, pos, lineage, window, lanes)
+        o = _attend(qkv[:, None, :da], k_read, v_read, valid, num_heads, dtype)[:, 0]
+        return xf, _dot(o, weights["so_w"])
+    if kind == "cross":
+        da = weights["cq_w"].shape[1]
+        qc = _round(_dot(xf, weights["cq_w"]) + weights["cq_b"], dtype)
+        n_img = mem_k.shape[0]
+        o = _attend(qc.reshape(n_img, b // n_img, da), mem_k, mem_v, mem_valid_f > 0, num_heads, dtype)
+        return xf, _dot(o.reshape(b, da), weights["co_w"])
+    if kind != "ffn":
+        raise ValueError(f"decoder_block: unknown kind {kind!r} (one of {sorted(BLOCK_KINDS)})")
+    return xf, _dot(torch.relu(_dot(xf, weights["l1_w"]) + weights["l1_b"]), weights["l2_w"])
+
+
+def decoder_block(kind, weights, x, part=None, pos=0, self_k=None, self_v=None, mem_k=None, mem_v=None,
+                  mem_valid_f=None, lineage=None, *, num_heads: int, window: int = 1, lanes: int = 1,
+                  prologue=None, round_x: bool = False, dtype=torch.float32):
+    """One tensor-parallel block -> (x_out (B, D) float32, part (B, D) float32,
+    None for "finish"). ``weights``: the rank's ``layer_weights`` (local
+    columns and rows), ``num_heads`` its local heads, ``dtype`` the storage
+    type. ``part`` (B, D), the all-reduced partial sum of the block before,
+    with ``prologue`` = (its bias, LayerNorm scale, LayerNorm bias): the
+    block first sets x = LN(x + (part + bias)), then rounds x to ``dtype``
+    when ``round_x`` (a layer's output). "self" also writes the local
+    heads' k and v at slot ``pos`` of the local caches."""
+    if x.device.type == "cpu":
+        return decoder_block_plain(kind, weights, x, part, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
+                                   num_heads=num_heads, window=window, lanes=lanes, prologue=prologue,
+                                   round_x=round_x, dtype=dtype)
+    return decoder_block_kernel(kind, weights, x, part, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage,
+                                num_heads=num_heads, window=window, lanes=lanes, prologue=prologue,
+                                round_x=round_x, dtype=dtype)
+
+
+def decoder_block_kernel(kind, weights, x, part=None, pos=0, self_k=None, self_v=None, mem_k=None, mem_v=None,
+                         mem_valid_f=None, lineage=None, *, num_heads: int, window: int = 1, lanes: int = 1,
+                         prologue=None, round_x: bool = False, dtype=torch.float32, split: int | None = None):
+    """The block kernel on CUDA tensors: one cluster per image and group of
+    lanes with one CTA per local head, or two for the cross block of a
+    long memory (``geometry.k2_geometry`` on the block's memory length; the
+    other blocks read no memory), or ``split`` (1 or 2) if given."""
+    global block_launches
+    name = "decoder_block"
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"{name}: unknown kind {kind!r} (one of {sorted(BLOCK_KINDS)})")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the storage type must be float32 or bfloat16, got {dtype}")
+    if kind == "finish" and part is None:
+        raise ValueError(f"{name}: finish needs the partial sum and its prologue")
+    vw = 16 // dtype.itemsize
+    b, d = x.shape
+    da = weights["cq_w"].shape[1]
+    fl = weights["l1_w"].shape[1]
+    hd = da // num_heads if num_heads else 0
+    if not num_heads or da % num_heads or num_heads > MAX_CLUSTER:
+        raise ValueError(f"{name}: local width {da} over {num_heads} local heads (at most {MAX_CLUSTER})")
+    pb, ln_s, ln_b = prologue if part is not None else (None, None, None)
+    w0, b0, w1 = (weights[k] for k in _BLOCK_WEIGHTS[kind]) if kind != "finish" else (None, None, None)
+    n_img, tm, cache_len, w = b // lanes, 1, 1, 1
+    if kind == "cross":
+        n_img, tm, _ = mem_k.shape
+    if kind == "self":
+        cache_len = self_k.shape[1]
+        w = min(window, cache_len)
+        if tuple(self_k.shape) != (b, cache_len, da) or tuple(self_v.shape) != (b, cache_len, da):
+            raise ValueError(f"{name}: the caches must be ({b}, L, {da})")
+        if lineage is not None and tuple(lineage.shape) != (b, w):
+            raise ValueError(f"{name}: lineage has shape {tuple(lineage.shape)}, expected {(b, w)}")
+        if not 0 <= pos < w:
+            raise ValueError(f"{name}: pos {pos} outside the window {w}")
+    if kind == "cross" and (tuple(mem_k.shape) != (n_img, tm, da) or tuple(mem_v.shape) != (n_img, tm, da)
+                            or tuple(mem_valid_f.shape) != (n_img, tm)):
+        raise ValueError(f"{name}: memory K/V must be (images, Tm, {da}) and mem_valid_f (images, Tm)")
+    if lanes < 1 or n_img * lanes != b:
+        raise ValueError(f"{name}: {b} rows are not {n_img} images x {lanes} lanes")
+    tensors = {"x": x, "part": part, "pb": pb, "ln_s": ln_s, "ln_b": ln_b, "w0": w0, "b0": b0, "w1": w1}
+    if kind == "self":
+        tensors.update(self_k=self_k, self_v=self_v, lineage=lineage)
+    if kind == "cross":
+        tensors.update(mem_k=mem_k, mem_v=mem_v, mem_valid_f=mem_valid_f)
+    _check_operands(name, tensors, x.device, {"self_k", "self_v", "mem_k", "mem_v", "w0", "w1"}, dtype)
+    group, _, ctas = k2_geometry(n_img, lanes, num_heads, tm)
+    split = ctas // num_heads if split is None else split
+    ncta = num_heads * split
+    if split not in (1, 2) or ncta > MAX_CLUSTER or hd % (vw * split) or d % ncta or (d // ncta) % vw \
+            or fl % ncta or (fl // ncta) % vw:
+        raise ValueError(f"{name}: D={d}, local FFN width {fl}, {num_heads} local heads of {hd}, {split} CTA(s) a "
+                         f"head (needs at most {MAX_CLUSTER} CTAs, the head width over the CTAs a head, D/CTAs and "
+                         f"FFN/CTAs multiples of {vw})")
+    lib = build.load(build.library_name(name, dtype))
+    smem = lib.decoder_block_smem_bytes(group, d, da, hd, fl, split, vw)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory, more than {SMEM_LIMIT}")
+    x_out = torch.empty(b, d, dtype=torch.float32, device=x.device)
+    part_out = None if kind == "finish" else torch.empty(b, d, dtype=torch.float32, device=x.device)
+    ptrs = [x, part, pb, ln_s, ln_b, x_out, part_out, tensors.get("self_k"), tensors.get("self_v"),
+            tensors.get("mem_k"), tensors.get("mem_v"), tensors.get("mem_valid_f"), tensors.get("lineage"), w0, b0,
+            w1]
+    arr = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
+    fn = lib.decoder_block_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), BLOCK_KINDS[kind], int(round_x), n_img, lanes, group, d, da, hd, fl,
+             cache_len, tm, pos, w, split, int(dtype == torch.bfloat16), stream)
+    build.check(err, name)
+    block_launches += 1
+    return x_out, part_out

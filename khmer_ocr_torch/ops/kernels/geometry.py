@@ -136,13 +136,15 @@ SMEM_LIMIT = 232448    # bytes of shared memory one H100 CTA may use
 K2_TC = 512            # K2's attention positions per chunk
 
 
-def layer_smem_floats(group: int, d: int, heads: int, f: int, split: int, tc: int) -> int:
+def layer_smem_floats(group: int, d: int, heads: int, f: int, split: int, tc: int, vw: int = 4) -> int:
     """Floats of one CTA's shared memory for the cluster layer
     (decoder_cluster.cuh::smem_floats): x, qkv, a, t, hid, part, y, the
     chunk's weights and rows, the S > 1 merge slots, the split-k sums and the
-    softmax statistics."""
+    softmax statistics. ``vw``: the elements of a 16-byte vector of the
+    storage type (4 in float32, 8 in bfloat16), the columns a thread carries,
+    which sizes the split-k sums."""
     hd = d // heads
-    red = group * max(4 * NT, d, 3 * hd, f // heads)
+    red = group * max(vw * NT, d, 3 * hd, f // heads)
     xo = split * (group * hd + 4 * group) if split > 1 else 0
     return (4 * group * d + 3 * group * hd + group * (f // (heads * split)) + heads * group * hd + 2 * group * tc
             + xo + red + 4 * group)
@@ -157,33 +159,36 @@ def k3_tc(tm: int, max_len: int) -> int:
     return 32 * math.ceil(max(tm, max_len, 1) / 32)
 
 
-def k3_vocab_cols(vocab: int, num_heads: int) -> int:
-    """The head's padded width Vp: a multiple of 4 x heads, so that each CTA
-    computes Vp / heads columns in float4s (128 for vocab 124 and 8 heads)."""
-    return 4 * num_heads * math.ceil(vocab / (4 * num_heads))
+def k3_vocab_cols(vocab: int, num_heads: int, vw: int = 4) -> int:
+    """The head's padded width Vp: a multiple of ``vw`` x heads, so that each
+    CTA computes Vp / heads columns in 16-byte vectors (``vw`` elements: 4
+    in float32, 8 in bfloat16; 128 for vocab 124 and 8 heads either way)."""
+    return vw * num_heads * math.ceil(vocab / (vw * num_heads))
 
 
 def k3_smem_bytes(k: int, d: int, heads: int, f: int, max_len: int, vocab_cols: int, n_layers: int,
-                  on_chip: bool, tc: int) -> int:
+                  on_chip: bool, tc: int, itemsize: int = 4) -> int:
     """Bytes of one K3 CTA's shared memory (decode_loop.cu::smem_bytes): the
     cluster layer's, the head's self-cache slice of every layer when on
-    chip, and the search state."""
-    cache = n_layers * 2 * k * max_len * (d // heads) if on_chip else 0
+    chip (``itemsize`` bytes an element, the storage type's, rounded up to
+    16 bytes), and the search state."""
+    cache = 16 * math.ceil(n_layers * 2 * k * max_len * (d // heads) * itemsize / 16) if on_chip else 0
     lp = max_len + 2
     state = 2 * k * lp + 2 * k * max_len + lp + k * vocab_cols + 2 * k * k + 3 * k + 1
-    return 4 * (layer_smem_floats(k, d, heads, f, 1, tc) + cache + state)
+    return 4 * (layer_smem_floats(k, d, heads, f, 1, tc, 16 // itemsize) + state) + cache
 
 
 def k3_geometry(k: int, d: int, heads: int, f: int, max_len: int, vocab: int, n_layers: int,
-                tm: int) -> tuple[int, bool, int]:
+                tm: int, itemsize: int = 4) -> tuple[int, bool, int]:
     """(CTAs per cluster, self caches on chip, attention chunk) of one K3
     launch: one cluster of one CTA per head for each image; CTA h keeps head
     h's slice of every layer's self caches in shared memory when the whole
-    CTA fits the H100's 232,448 bytes (K <= 3 at the flagship), else in a
+    CTA fits the H100's 232,448 bytes (K <= 3 at the flagship in float32,
+    K <= 4 in bfloat16, whose caches take half the bytes), else in a
     head-major global scratch. A CTA takes an SM's registers on either route,
     so both hold the same clusters at once (15 at the flagship on an H100)
     and the on-chip route is never the slower one."""
     tc = k3_tc(tm, max_len)
-    vp = k3_vocab_cols(vocab, heads)
-    on_chip = k3_smem_bytes(k, d, heads, f, max_len, vp, n_layers, True, tc) <= SMEM_LIMIT
+    vp = k3_vocab_cols(vocab, heads, 16 // itemsize)
+    on_chip = k3_smem_bytes(k, d, heads, f, max_len, vp, n_layers, True, tc, itemsize) <= SMEM_LIMIT
     return heads, on_chip, tc

@@ -1,4 +1,4 @@
-"""Data parallelism over ``torch.distributed``: one process per device.
+"""Data and tensor parallelism over ``torch.distributed``: one process per device.
 
 The JAX package runs one process over a (data, model) device mesh, and
 XLA's partitioner makes every sharded array logically global. The port's
@@ -23,16 +23,39 @@ and rendezvous address in the environment:
 
     python -m torch.distributed.run --nproc-per-node N -m khmer_ocr_torch.train.cli --data-parallel ...
 
-The tensor-parallel model axis of the JAX package's mesh is not ported here.
+The model axis (tensor parallelism): ``make_mesh(n_data, n_model)`` places
+the world's ranks as the JAX package's ``np.array(devices).reshape(n_data,
+n_model)`` does, the model index fastest, and gives this rank its data
+group (the ranks of its model index) and its model group (the ranks of its
+data index). Over a model group each rank holds its part of the params
+(parallel/placement.py: ``shard_params`` on the JAX-layout tree, then
+``convert.from_jax.params_from_jax(..., model_group=)``), and the model's
+functions take ``model_group=``: attention over the local heads, the FFN
+over the local columns, the out-projections and the second FFN weight as
+partial sums all-reduced over the group (``reduce_from_model``), the token
+embedding as a masked local lookup all-reduced, the vocabulary projection
+over the local columns all-gathered (``gather_from_model``). Entering a
+parallel region goes through ``copy_to_model``, whose backward all-reduces
+the input's gradient, so ``forward_train`` under a model group gives every
+rank the one-process gradients of its part, as JAX's partitioner does.
+Serve with a mesh under torchrun:
+
+    mesh = make_mesh(n_data, n_model)    # in every process, after init_process_group
+    local = shard_params(params, mesh.model_rank, mesh.n_model)
+    state = params_from_jax(local, stats, cfg, device, model_group=mesh.model_group)
+    tokens = infer_batch(state, lines, counts, cfg, dec_cfg, chunk_geom, model_group=mesh.model_group)
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .placement import param_sharding, shard_params, spec_for_path  # noqa: F401 (the mesh's placement)
 
 
 def group_is_up() -> bool:
@@ -166,3 +189,106 @@ def global_batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, 
     """Training BatchNorm over the whole group's batch (NCHW) -> (y, the
     global mean, biased variance and element count per channel)."""
     return _GlobalBatchNorm.apply(x, scale, bias, eps, group)
+
+
+# --- the model axis ----------------------------------------------------------
+
+
+@dataclass
+class Mesh:
+    """This rank's place on a (data, model) grid of ranks and its two groups."""
+
+    data_group: object
+    model_group: object
+    n_data: int
+    n_model: int
+    data_rank: int
+    model_rank: int
+
+
+def make_mesh(n_data: int | None = None, n_model: int = 1) -> Mesh:
+    """The (data, model) grid over the world's ranks: rank r sits at data
+    index r // n_model and model index r % n_model (the JAX package's
+    reshape of its device list). Builds every data group, then every model
+    group, with ``dist.new_group`` in the same order on every rank (each
+    rank must call it), and returns this rank's. ``n_data`` defaults to the
+    world size over ``n_model``."""
+    if not group_is_up():
+        raise RuntimeError("make_mesh needs a process group: call torch.distributed.init_process_group first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"a mesh of {n_data} x {n_model} ranks over a world of {world}")
+    data_groups = [dist.new_group([d * n_model + m for d in range(n_data)]) for m in range(n_model)]
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)]) for d in range(n_data)]
+    d, m = divmod(rank, n_model)
+    return Mesh(data_groups[m], model_groups[d], n_data, n_model, d, m)
+
+
+def tp_active(group) -> bool:
+    """Whether ``group`` splits the model over more than one rank."""
+    return group is not None and dist.get_world_size(group) > 1
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; all-reduce of the gradient backward (entering a
+    parallel region: every rank's part of the region reads the whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward (the ranks' partial sums); identity backward
+    (leaving a parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' (..., n) blocks -> (..., M n) in rank order forward (a sum
+    of zero-padded blocks, which every backend has for CPU and CUDA tensors);
+    this rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        rank, size = world_of(group)
+        n = x.shape[-1]
+        out = x.new_zeros((*x.shape[:-1], size * n))
+        out[..., rank * n:(rank + 1) * n] = x
+        dist.all_reduce(out, group=group)
+        ctx.rank, ctx.n = rank, n
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _GatherFromModel.apply(x, group)

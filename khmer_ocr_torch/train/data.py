@@ -169,3 +169,18 @@ def load_folder_dataset(root, tokenizer=None, **kw) -> LineDataset:
         if lab.exists():
             samples.append((str(img), lab.read_text(encoding="utf-8").strip()))
     return LineDataset(samples, tokenizer, **kw)
+
+
+def load_hf_dataset(names: list, tokenizer: Tokenizer | None = None, **kw) -> LineDataset:
+    """A LineDataset of every example's "image" and "label" of the given
+    datasets: a name is loaded (split "train") with the Hugging Face
+    ``datasets`` package, imported only then; anything else is taken as an
+    iterable of such examples (a loaded dataset, a list of dicts)."""
+    samples = []
+    for name in names:
+        if isinstance(name, str):
+            import datasets as hfds
+
+            name = hfds.load_dataset(name, split="train")
+        samples += [(ex["image"], ex["label"]) for ex in name]
+    return LineDataset(samples, tokenizer, **kw)

@@ -2,8 +2,9 @@
 
 ``ops/kernels/build.py`` names each library by a hash of its source, the
 ``csrc/`` headers the source includes and the nvcc flags. An edit to either
-header that kernels K2 and K3 share (the cluster layer and the constants and
-LayerNorm it includes) must give both a new library (a stale one would run
+header that kernels K2 (with its tensor-parallel blocks) and K3 share (the
+cluster layer and the constants and LayerNorm it includes) must give all of
+them a new library, for either storage type (a stale one would run
 the old layer), and leave the other kernels' libraries as they are. The
 module imports no torch, so these run in the pytest process.
 """
@@ -17,7 +18,9 @@ import pytest
 from khmer_ocr_torch.ops.kernels import build
 
 SHARED = ("decoder_common.cuh", "decoder_cluster.cuh")
-USERS = ("decoder_layer_step", "decode_loop")
+# K2, its tensor-parallel blocks and K3, each built once per storage type (float, bf16)
+USERS = ("decoder_layer_step", "decoder_layer_step_bf16", "decoder_block", "decoder_block_bf16", "decode_loop",
+         "decode_loop_bf16")
 
 
 @pytest.mark.parametrize("name", sorted(build.SOURCES))

@@ -9,9 +9,16 @@
   rendered by the JAX package's generator (seed 123, no augmentation, 2-6
   words, lines of at most 60 tokens), resized to 48 px, with their texts,
   the JAX Predictor's beam-3 strings (max_len 64, batch 8, float32) and the
-  mean CER and exact-match share of those strings. The lines re-render to the
-  same bytes, and the first 8 decode to the stored strings, by JAX and by the
-  port's Predictor loading the weights directory.
+  mean CER and exact-match share of those strings, and the same three of
+  the JAX Predictor in bfloat16 (its speed mode: ``compute_dtype=
+  "bfloat16"``, matmul precision "default"), which chip_smoke.py's [bf16]
+  phase holds the card to. The lines re-render to the same bytes, the
+  recipe and the float32 strings are the ones stored before the bfloat16
+  strings joined them, and the first 8 decode to the stored strings, by
+  JAX and by the port's Predictor loading the weights directory, in
+  float32 and in bfloat16 (the port's bfloat16 strings equal JAX's but for
+  lines whose two answers part at a near-tie: their teacher-forced scores,
+  the port's float32 model, within 0.05 nats where they first differ).
 * ``save_npz``/``load_npz`` keep bfloat16 leaves in 16 bits and widen them
   exactly; float32 files of the earlier layout still load.
 
@@ -41,6 +48,9 @@ LINES_JSON = REPO / "khmer_ocr_torch" / "assets" / "real_lines.json"
 RECIPE = dict(seed=123, augment=False, words_per_sample=[2, 6], rendered=96, lines=64, max_tokens=60,
               beam_width=3, max_len=64, batch_size=8)
 N_CHECKED = 8  # lines decoded by both packages in the tests
+# sha256 of the float32 strings' JSON (ensure_ascii=False) as first stored: they must not move
+F32_STRINGS_SHA256 = "627273bfb9d06d4ffd4cbb4c64712a7998f11e35fbadbba394f99699af8d4f29"
+BF16_MARGIN = 0.05  # nats
 
 
 def build_index() -> dict:
@@ -89,17 +99,21 @@ def render_lines():
     return [resize_line_u8(Image.fromarray(img), PreprocessConfig()) for img, _ in samples], [t for _, t in samples]
 
 
-def jax_strings(lines) -> list[str]:
-    """The JAX Predictor's beam-3 strings of ``lines``, the checkpoint cast to float32."""
+def jax_strings(lines, bf16: bool = False) -> list[str]:
+    """The JAX Predictor's beam-3 strings of ``lines``, the checkpoint cast to
+    float32 (parity mode), or with ``bf16`` its speed mode (the Predictor
+    casts the params to bfloat16; matmul precision "default")."""
     import jax
 
+    from khmer_ocr_tpu.config import OCRConfig, RuntimeConfig
     from khmer_ocr_tpu.infer.predictor import Predictor
     from khmer_ocr_tpu.train.checkpoint import load_checkpoint
 
     params, stats, cfg = load_checkpoint(CKPT)
     f32 = lambda t: jax.tree.map(lambda v: np.asarray(v, np.float32), t)
-    pred = Predictor(params=f32(params), batch_stats=f32(stats), model_cfg=cfg)
-    with jax.default_matmul_precision("highest"):
+    runtime = RuntimeConfig(compute_dtype="bfloat16", matmul_precision="default") if bf16 else RuntimeConfig()
+    pred = Predictor(params=f32(params), batch_stats=f32(stats), model_cfg=cfg, config=OCRConfig(runtime=runtime))
+    with jax.default_matmul_precision(runtime.matmul_precision):
         return pred.predict_batch(lines, beam_width=RECIPE["beam_width"], batch_size=RECIPE["batch_size"],
                                   max_len=RECIPE["max_len"])
 
@@ -165,6 +179,30 @@ if __name__ != "__main__":
         meta = json.loads(LINES_JSON.read_text())
         assert port_run["strings"] == meta["strings"][:N_CHECKED]
 
+    def test_real_lines_recipe_and_float32_strings_unchanged():
+        meta = json.loads(LINES_JSON.read_text())
+        assert meta["recipe"] == RECIPE
+        digest = hashlib.sha256(json.dumps(meta["strings"], ensure_ascii=False).encode()).hexdigest()
+        assert digest == F32_STRINGS_SHA256
+
+    def test_real_lines_jax_bf16_strings_and_cer_are_current():
+        from khmer_ocr_tpu.metrics import calculate_cer
+
+        meta = json.loads(LINES_JSON.read_text())
+        assert jax_strings(stored_lines()[:N_CHECKED], bf16=True) == meta["bf16_strings"][:N_CHECKED]
+        cers = [calculate_cer(t, s) for t, s in zip(meta["texts"], meta["bf16_strings"])]
+        assert meta["bf16_mean_cer"] == float(np.mean(cers))
+        assert meta["bf16_exact_match"] == float(np.mean([t == s for t, s in zip(meta["texts"],
+                                                                                   meta["bf16_strings"])]))
+
+    def test_port_bf16_predictor_against_jax_bf16_strings(port_run):
+        meta = json.loads(LINES_JSON.read_text())
+        ref = meta["bf16_strings"][:N_CHECKED]
+        differ = [i for i, (g, r) in enumerate(zip(port_run["bf16_strings"], ref)) if g != r]
+        gaps = port_run["bf16_gaps"]
+        assert sorted(int(i) for i in gaps) == differ and all(g < BF16_MARGIN for g in gaps.values()), gaps
+        assert len(differ) <= 1, differ
+
     def test_load_npz_widens_bf16_exactly(tmp_path):
         """bf16 leaves of the checkpoint stay 16 bits in the file and widen
         exactly; a float32 file of the earlier layout (no dtype record) loads."""
@@ -192,17 +230,48 @@ if __name__ != "__main__":
         assert s_old == {}
 
 
+def _first_split_gap(torch, pred, line, seq_a, seq_b) -> float:
+    """The teacher-forced log-probs (``pred``'s model) of two token rows
+    summed through the first token where they differ, and their difference."""
+    from khmer_ocr_torch.models.ocr_model import forward_train
+    from khmer_ocr_torch.ops.lines import device_chunk, u8_to_unit, unit_normalize
+
+    n = max(len(seq_a), len(seq_b))
+    a, b = (np.pad(np.asarray(s), (0, n - len(s))) for s in (seq_a, seq_b))
+    k = int(np.argmax(a != b))
+    batch = next(iter(pred.preprocessor.iter_batches([line])))
+    lines, counts = torch.from_numpy(batch.lines), torch.from_numpy(batch.chunk_counts)
+    chunks = device_chunk(unit_normalize(u8_to_unit(lines)), pred._chunk_geom)
+    sums = []
+    for seq in (a, b):
+        seq = torch.tensor([int(t) for t in seq[:k + 1]])[None]
+        with torch.no_grad():
+            logits, _ = forward_train(pred.params, None, chunks, counts, seq[:, :-1], pred.model_cfg, train=False)
+        sums.append(float(torch.log_softmax(logits.float(), -1)[0].gather(-1, seq[0, 1:, None]).sum()))
+    return abs(sums[0] - sums[1])
+
+
 def _port_main(tmp: Path) -> None:
     sys.path.insert(0, str(REPO))
     import torch
 
+    from khmer_ocr_torch.config import OCRConfig, RuntimeConfig
     from khmer_ocr_torch.infer.predictor import Predictor
 
     torch.set_num_threads(4)
+    lines = stored_lines()[:N_CHECKED]
+    kw = dict(beam_width=RECIPE["beam_width"], batch_size=RECIPE["batch_size"], max_len=RECIPE["max_len"])
     pred = Predictor(model_path=WEIGHTS, device="cpu")
-    strings = pred.predict_batch(stored_lines()[:N_CHECKED], beam_width=RECIPE["beam_width"],
-                                 batch_size=RECIPE["batch_size"], max_len=RECIPE["max_len"])
-    (tmp / "port.json").write_text(json.dumps({"strings": strings}, ensure_ascii=False))
+    strings = pred.predict_batch(lines, **kw)
+    bf16 = Predictor(model_path=WEIGHTS, device="cpu",
+                     config=OCRConfig(runtime=RuntimeConfig(compute_dtype="bfloat16", matmul_precision="default")))
+    rows = bf16.predict_batch_tokens(lines, **kw)
+    bf16_strings = [bf16.tokenizer.decode(r) for r in rows]
+    ref = json.loads(LINES_JSON.read_text()).get("bf16_strings", [])[:N_CHECKED]
+    gaps = {str(i): _first_split_gap(torch, pred, lines[i], rows[i], pred.tokenizer.encode(r))
+            for i, (g, r) in enumerate(zip(bf16_strings, ref)) if g != r}
+    (tmp / "port.json").write_text(json.dumps({"strings": strings, "bf16_strings": bf16_strings, "bf16_gaps": gaps},
+                                              ensure_ascii=False))
 
 
 def _write_assets() -> None:
@@ -220,13 +289,18 @@ def _write_assets() -> None:
     (WEIGHTS / "index.json").write_text(json.dumps(build_index(), indent=1) + "\n")
     lines, texts = render_lines()
     strings = jax_strings(lines)
+    bf16_strings = jax_strings(lines, bf16=True)
     np.savez_compressed(LINES_NPZ, **{f"line_{i}": line for i, line in enumerate(lines)})
     LINES_JSON.write_text(json.dumps({
         "recipe": RECIPE, "texts": texts, "strings": strings,
         "mean_cer": float(np.mean([calculate_cer(t, s) for t, s in zip(texts, strings)])),
         "exact_match": float(np.mean([t == s for t, s in zip(texts, strings)])),
+        "bf16_strings": bf16_strings,
+        "bf16_mean_cer": float(np.mean([calculate_cer(t, s) for t, s in zip(texts, bf16_strings)])),
+        "bf16_exact_match": float(np.mean([t == s for t, s in zip(texts, bf16_strings)])),
         "made_by": "tests/test_torch_flagship.py assets: lines by the JAX package's DocumentTextGenerator and "
-                   "resize, strings by its Predictor on the CPU, float32, matmul precision highest"},
+                   "resize, strings by its Predictor on the CPU, float32, matmul precision highest; bf16_* by "
+                   "the same Predictor with compute_dtype bfloat16, matmul precision default"},
         ensure_ascii=False, indent=1) + "\n")
     print(f"wrote {WEIGHTS} and {LINES_NPZ.name} ({len(lines)} lines)")
 

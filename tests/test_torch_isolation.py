@@ -43,13 +43,18 @@ RAISES = ("predictor_without_device", "recognize_without_device", "recognize_bat
           "layout_aware_pipeline_without_device", "standalone_without_device", "layout_cli_without_device",
           "pipeline_cli_without_device", "pdf_cli_without_device", "layout_finetune_without_device",
           "layout_train_cli_without_device", "data_parallel_cli_without_torchrun",
-          "data_parallel_cli_cpu_without_torchrun")
+          "data_parallel_cli_cpu_without_torchrun", "decode_step_bf16_wrapper_on_meta",
+          "decode_step_head_wrapper_on_meta", "decoder_block_wrapper_on_meta", "decode_loop_bf16_wrapper_on_meta",
+          "bf16_predictor_without_device", "make_mesh_without_a_group")
 
 _PAGE_PATH = ("import khmer_ocr_torch.detection.detector, khmer_ocr_torch.detection.cli, "
               "khmer_ocr_torch.detection.surya, khmer_ocr_torch.pipeline.engine, khmer_ocr_torch.pipeline.document, "
               "khmer_ocr_torch.pipeline.pdf, khmer_ocr_torch.infer.standalone")
 _TRAINING = ("import khmer_ocr_torch.detection.train, khmer_ocr_torch.train.augment, khmer_ocr_torch.parallel.mesh, "
              "khmer_ocr_torch.train.cli")
+_TENTH_SLICE = ("import khmer_ocr_torch.parallel.placement, khmer_ocr_torch.parallel.mesh, "
+                "khmer_ocr_torch.native.imageio, khmer_ocr_torch.preprocess, khmer_ocr_torch.infer.api, "
+                "khmer_ocr_torch.ops.kernels.decode_step, khmer_ocr_torch.decode.beam")
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import khmer_ocr_torch
@@ -59,7 +64,8 @@ for m in pkgutil.walk_packages(khmer_ocr_torch.__path__, "khmer_ocr_torch."):
 
 
 @pytest.mark.parametrize("code", ["import khmer_ocr_torch", _IMPORT_ALL, "import khmer_ocr_torch.train.loop", _PAGE_PATH,
-                                  _TRAINING], ids=["package", "every_module", "train_loop", "page_path", "training"])
+                                  _TRAINING, _TENTH_SLICE],
+                         ids=["package", "every_module", "train_loop", "page_path", "training", "tenth_slice"])
 def test_import_loads_neither_jax_nor_the_jax_package(code):
     probe = code + "\nimport sys\nprint(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'khmer_ocr_tpu')))"
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, check=True)
@@ -190,6 +196,35 @@ def _port_main(tmp: Path) -> None:
                                                   torch.zeros(2, 32, dtype=torch.bool, device="meta"), cfg,
                                                   DecodeConfig(beam_width=3, max_len=8)))
     attempt("smem_probe_wrapper_on_meta", lambda: smem_probe.smem_probe(torch.empty(8, 128, **meta), 2048))
+    bf = dict(device="meta", dtype=torch.bfloat16)
+    wt16 = {k: (torch.empty(*v.shape, **bf) if k in decode_step.MATRIX_FIELDS else v) for k, v in wt.items()}
+    attempt("decode_step_bf16_wrapper_on_meta",
+            lambda: decode_step.decoder_layer_step(
+                wt16, torch.empty(3, d, **bf), 0, torch.empty(3, 8, d, **bf), torch.empty(3, 8, d, **bf),
+                torch.empty(1, 32, d, **bf), torch.empty(1, 32, d, **bf), torch.empty(1, 32, **meta),
+                torch.zeros(3, 8, dtype=torch.int32, device="meta"), num_heads=4, window=8, lanes=3))
+    attempt("decode_step_head_wrapper_on_meta",
+            lambda: decode_step.decoder_layer_step(
+                wt, torch.empty(3, d, **meta), 0, torch.empty(3, 8, d, **meta), torch.empty(3, 8, d, **meta),
+                torch.empty(1, 32, d, **meta), torch.empty(1, 32, d, **meta), torch.empty(1, 32, **meta),
+                torch.zeros(3, 8, dtype=torch.int32, device="meta"), num_heads=4, window=8, lanes=3,
+                head=(torch.empty(d, 128, **meta), torch.empty(128, **meta), 124)))
+    attempt("decoder_block_wrapper_on_meta",
+            lambda: decode_step.decoder_block("ffn", wt, torch.empty(3, d, **meta), torch.empty(3, d, **meta),
+                                              num_heads=4, lanes=3, prologue=(wt["co_b"], wt["ln2_s"], wt["ln2_b"])))
+    attempt("decode_loop_bf16_wrapper_on_meta",
+            lambda: decode_loop.fused_beam_decode(params_from_jax(params, stats, cfg, device="meta"),
+                                                  torch.empty(2, 32, d, **bf),
+                                                  torch.zeros(2, 32, dtype=torch.bool, device="meta"), cfg,
+                                                  DecodeConfig(beam_width=3, max_len=8)))
+    from khmer_ocr_torch.config import OCRConfig as _OCRConfig
+    from khmer_ocr_torch.config import RuntimeConfig as _RuntimeConfig
+    from khmer_ocr_torch.parallel.mesh import make_mesh
+
+    attempt("bf16_predictor_without_device",
+            lambda: Predictor(params=params, batch_stats=stats, model_cfg=cfg,
+                              config=_OCRConfig(runtime=_RuntimeConfig(compute_dtype="bfloat16"))))
+    attempt("make_mesh_without_a_group", lambda: make_mesh(1, 2))
     attempt("lstm_backward_wrapper_on_meta",
             lambda: lstm_backward.lstm_adjoint(torch.empty(1, 4, 768, **meta), torch.empty(1, 4, 192, **meta),
                                                torch.empty(1, 4, 192, **meta), torch.empty(192, 768, **meta)))
