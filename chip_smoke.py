@@ -8,7 +8,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      whether Pillow, OpenCV and safetensors import there (nothing needs them);
   2. build: the CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
      one nvcc each, all at once (K2, its tensor-parallel blocks and K3 once
-     per storage type, float32 and bf16);
+     per storage type, float32 and bf16, and K2's second float32 library,
+     bounded for two CTAs an SM);
   3. K1 (LSTM recurrence) against its plain version and cuDNN's nn.LSTM at
      H=192, one direction and two stacked directions, (B, T) in {(1, 4096),
      (8, 1024), (256, 256)}: both routes (thread-block clusters, one CTA per
@@ -21,8 +22,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and 8 images x Tm=256; random lineage and ragged memory validity:
      output and written cache slot within 1e-4, every other cache slot
      bit-identical, with one and (where the launch fits the SMs) two CTAs a
-     head; timed as device time (a CUDA graph of launches) and as a call
-     from Python;
+     head, and from both float32 libraries (registers bounded for one CTA
+     an SM and for two; geometry.k2_two_ctas_an_sm picks one per launch);
+     timed as device time (a CUDA graph of launches) and as a call from
+     Python;
   5. K3 (whole beam decode, one cluster of one CTA per head for each
      image) against its plain version on seeded flagship decoder weights:
      8 images at Tm 32..128, beam 2-4, max_len 16 and 64; 64 images at
@@ -107,24 +110,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      strings stored with the lines, mean CER at most theirs + 0.005,
      lines/s beside float32's by the host loop and with
      KHMER_OCR_MEGA_DECODE=1, launches counted;
- 15. the fused decode head: K2 with ``head`` against its plain version in
+ 15. matmul precision scoped to each call: a bf16 Predictor at "default"
+     beside a LayoutInference leaves torch's TF32 switches as it found them;
+     an f32 matmul's error at float32 level outside a scope and at TF32
+     level inside "default"; the detector at "highest" waits for another
+     thread's "default" scope and gives bit-equal maps;
+ 16. the fused decode head: K2 with ``head`` against its plain version in
      float32 and bf16, timed with and without; 18 flagship lines at beam 3
      with KHMER_OCR_FUSED_HEAD=1, tokens equal to those without it, one head
      launch a host-loop step;
- 16. the tensor-parallel model axis: K2's blocks (csrc/decoder_block.cu)
+ 17. the tensor-parallel model axis: K2's blocks (csrc/decoder_block.cu)
      against their plain versions and, both ranks' parts chained in one
      process, against the unsplit K2 step; then two rank processes sharing
      the card over gloo (``--tp-rank``), each with its half of the flagship's
      weights: forward_train logits within 2e-4 / 1e-3 of one process's, 18
      lines at beam 3 through infer_batch token-equal to one process's, K2
      block launches per rank;
- 17. the host input path: whether the native loader (native/imageio.cpp)
+ 18. the host input path: whether the native loader (native/imageio.cpp)
      builds on this machine and, if so, its pixels against PIL's; the
      Preprocessor's lines/s on 256 PNG files at host_workers 1 and 8;
      Predictor.warmup's seconds and the first request after it;
- 18. one JSON line with every kernel's numbers (K2's bf16, head and block
+ 19. one JSON line with every kernel's numbers (K2's bf16, head and block
      variants and K3's bf16 as entries of their own);
- 19. the last line: {"ok": true, "device": {...}}.
+ 20. the last line: {"ok": true, "device": {...}}.
 
 Times come from CUDA events after warm-up (K2's device time from a
 replayed CUDA graph of launches). ``bound_ms`` is the larger of the
@@ -521,13 +529,17 @@ def phase_k2(torch, weights):
         untouched = torch.equal(sk_k[:, keep], sk[:, keep]) and torch.equal(sv_k[:, keep], sv[:, keep])
         _, clusters, ctas = geometry.k2_geometry(n_img, lanes, heads, tm)
         split = ctas // heads
+        built = 2 if geometry.k2_two_ctas_an_sm(clusters, ctas) else 1  # CTAs an SM the library is bounded for
         shape = f"{'greedy ' if greedy else ''}{n_img}x{lanes} w={w} Tm={tm}"
-        # the other number of CTAs a head, where the launch fits the SMs with two
+        # the other number of CTAs a head, where the launch fits the SMs with two, and the other library
         other = 3 - split if clusters * 2 * heads <= geometry.SMS else None
-        if other is not None:
+        variants = ([dict(split=other)] if other is not None else []) + [dict(ctas_an_sm=3 - built)]
+        caches = []
+        for extra in variants:
             sk_o, sv_o = sk.clone(), sv.clone()
+            caches.append((sk_o, sv_o))
             out_o = K.decoder_layer_step_kernel(weights, x, pos, sk_o, sv_o, mk, mv, mvf, lin, num_heads=heads,
-                                                window=w, lanes=lanes, split=other)
+                                                window=w, lanes=lanes, **extra)
             torch.cuda.synchronize()
             err = max(err, (out_o - ref).abs().max().item(), (sk_o[:, pos] - sk_p[:, pos]).abs().max().item(),
                       (sv_o[:, pos] - sv_p[:, pos]).abs().max().item())
@@ -541,20 +553,22 @@ def phase_k2(torch, weights):
                                             window=w, lanes=lanes)
         ms = graph_ms(torch, step)
         call_ms = cuda_ms(torch, step, 20)
-        other_ms = None
-        if other is not None:
-            other_ms = graph_ms(torch, lambda: K.decoder_layer_step_kernel(
-                weights, x, pos, sk_o, sv_o, mk, mv, mvf, lin, num_heads=heads, window=w, lanes=lanes, split=other))
+        variant_ms = [graph_ms(torch, lambda: K.decoder_layer_step_kernel(
+            weights, x, pos, c[0], c[1], mk, mv, mvf, lin, num_heads=heads, window=w, lanes=lanes, **extra))
+            for extra, c in zip(variants, caches)]
+        other_ms = variant_ms[0] if other is not None else None
         plain_ms = cuda_ms(torch, lambda: K.decoder_layer_step_plain(weights, x, pos, sk_p, sv_p, mk, mv, mvf,
                                                                      lin, num_heads=heads, window=w,
                                                                      lanes=lanes), 2)
         nbytes, ops = k2_cost(torch, n_img, lanes, d, f, heads, pos, tm, int(valid_len.sum()), lin, numel)
         bms, by = bound_ms(nbytes, ops)
-        rows.append(dict(shape=shape, ctas_per_head=split, max_abs_err=err, ms=ms, call_ms=call_ms,
-                         other_split_ms=other_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+        rows.append(dict(shape=shape, ctas_per_head=split, ctas_an_sm=built, max_abs_err=err, ms=ms, call_ms=call_ms,
+                         other_split_ms=other_ms, other_library_ms=variant_ms[-1], plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bms, bound_by=by))
         also = "" if other is None else f"; {other} CTA(s) a head {other_ms:.4f} ms"
         print(f"[K2] {shape:22s} pos={pos:3d}: max|diff| {err:.2e}, untouched slots identical; kernel, {split} "
-              f"CTA(s) a head: {ms:.4f} ms (a call from Python {call_ms:.4f} ms{also}), plain {plain_ms:.3f} ms, "
+              f"CTA(s) a head, {built} CTA(s) an SM: {ms:.4f} ms (a call from Python {call_ms:.4f} ms{also}; the "
+              f"library for {3 - built} CTA(s) an SM {variant_ms[-1]:.4f} ms), plain {plain_ms:.3f} ms, "
               f"bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
     return rows, worst
 
@@ -1157,12 +1171,13 @@ def phase_host_augment(torch, smi):
     dataset = LineDataset(real_samples(64), train_cfg=ocfg.train, augment=True)
     seen, real_step = [], loop.make_train_step
 
-    def recording_step(*args, **kw):
-        step = real_step(*args, **kw)
+    def recording_step(*args, precision="highest", **kw):
+        step = real_step(*args, precision=precision, **kw)
         seen.append(args[2])  # the device step's augmentation probability
+        seen.append(precision)  # the step's matmul precision: the config's
 
         def run(state, batch, generator, lr):
-            if len(seen) == 1:
+            if len(seen) == 2:
                 seen.append({k: v.cpu().numpy() for k, v in batch.items()})
             return step(state, batch, generator, lr)
 
@@ -1181,7 +1196,7 @@ def phase_host_augment(torch, smi):
     finally:
         loop.make_train_step = real_step
     c = train_counts()
-    first = seen[1]
+    first = seen[2]
     host = next(dataset.epoch_batches(16, np.random.default_rng(loop._epoch_seed(ocfg.train.seed, 1)),
                                       sample_size=64, max_label_len=ocfg.model.decode_max_len + 1))
     same = all(np.array_equal(first[k], v) for k, v in host.as_dict().items())
@@ -1191,6 +1206,8 @@ def phase_host_augment(torch, smi):
           f"the card byte-equal to the host's build: {same}")
     if seen[0] != 0.0 or "lines" in first:
         fail(f"host augment: the device step augments too (probability {seen[0]}, layout {sorted(first)})")
+    if seen[1] != ocfg.runtime.matmul_precision:
+        fail(f"host augment: train() built its step at precision {seen[1]!r}, not the config's")
     if not same:
         fail("host augment: the batch on the card differs from the host's build of it")
     if not all(np.isfinite(e["mean_loss"]) for e in epochs):
@@ -2194,12 +2211,10 @@ def k3_bf16_real(torch, pred, lines, bw, bs, max_len):
     batch inside K3's envelope: a trained head on real memory, whose
     choices are not near-ties, so every line's tokens must be equal and its
     answer's normalised score within TOL."""
-    from khmer_ocr_torch.infer.predictor import set_parity_mode
     from khmer_ocr_torch.models.ocr_model import encode
     from khmer_ocr_torch.ops.kernels import decode_loop as K3
     from khmer_ocr_torch.ops.lines import device_chunk, u8_to_unit, unit_normalize
 
-    set_parity_mode()  # the bf16 Predictor's "default" precision: its plain version's float32 sums without TF32
     cfg, dec = pred.model_cfg, pred._dec_cfg(bw, max_len)
     err, gaps, n_lines, n_batches = 0.0, [], 0, 0
     with torch.inference_mode():
@@ -2250,7 +2265,7 @@ def phase_bf16(torch, state, cfg, smi):
 
     from khmer_ocr_torch.config import DecodeConfig, OCRConfig, RuntimeConfig
     from khmer_ocr_torch.decode.beam import beam_decode
-    from khmer_ocr_torch.infer.predictor import Predictor, cast_params, set_parity_mode
+    from khmer_ocr_torch.infer.predictor import Predictor, cast_params
     from khmer_ocr_torch.metrics import score
     from khmer_ocr_torch.models.layers import pack_step_params
     from khmer_ocr_torch.models.ocr_model import pack_decode_params
@@ -2308,7 +2323,6 @@ def phase_bf16(torch, state, cfg, smi):
     print("[bf16] K3's clusters the card holds at once in bf16 (Tm=128, max_len 64): " + "; ".join(
         f"beam {k}: {n} with the self caches {'on chip' if oc else 'in global memory'}" for k, (oc, n) in
         resident.items()))
-    set_parity_mode()
     first_step = k3_bf16_first_step(torch, cast_params(state, bf), cfg)
     k3_rows, k3_worst, k3_gaps = [], 0.0, []
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -2384,13 +2398,126 @@ def phase_bf16(torch, state, cfg, smi):
                     fail(f"bf16 flagship {mode}: launches {c} (every K2 launch bf16, {mode.upper()} launched)")
     del preds
     torch.cuda.empty_cache()
-    set_parity_mode()  # the bf16 Predictor's "default" precision turned TF32 on for the process
     print(f"[bf16] K3 against its plain bf16 version: {len(k3_gaps)} image(s) exempt as near-ties in all, gaps "
           f"{fmt_gaps(k3_gaps)} (BF16_NEAR_TIE {BF16_NEAR_TIE})")
     return dict(k2_rows=k2_rows, k2_err=k2_worst, k3_rows=k3_rows, k3_err=k3_worst, real=real, k3_resident=resident,
                 k3_real=real_k3, k3_exempt_gaps=k3_gaps, k3_first_step=first_step, k2_launches=launches["k2"]["k2_bf16"],
                 k3_launches=launches["k3"]["k3"])
 
+
+PRECISION_WAIT = 0.5  # seconds the detector must stay blocked behind another precision's scope
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    return ((got.double() - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_precision(torch, smi):
+    """The matmul precision is scoped to each call (khmer_ocr_torch/
+    precision.py), as the JAX package scopes default_matmul_precision. (i)
+    LayoutInference on the seeded SegFormer, then a Predictor of the trained
+    flagship with compute_dtype="bfloat16" and matmul_precision="default"
+    on 8 of the 64 rendered lines (beam 3, max_len 64): torch's three
+    switches after the call equal those before it, and the strings score
+    within 0.005 of the JAX package's bf16 CER on those lines. (ii) One
+    float32 384 x 384 x 384 matmul against float64: its max error relative
+    to the largest |value| below 1e-5 outside any scope (float32), above
+    1e-4 inside matmul_precision("default") (TF32); both timed. (iii) One
+    LayoutInference.packed_maps at "highest" while another thread holds a
+    "default" scope: it waits until that scope ends, then gives maps
+    bit-equal to a run without the thread."""
+    import threading
+
+    import numpy as np
+
+    from khmer_ocr_torch.config import OCRConfig, RuntimeConfig
+    from khmer_ocr_torch.convert.from_jax import seeded_segformer_state
+    from khmer_ocr_torch.data.pages import compose_pages
+    from khmer_ocr_torch.detection import detector
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.metrics import score
+    from khmer_ocr_torch.precision import matmul_precision, switches
+
+    layout = detector.LayoutInference(None, params=seeded_segformer_state(None, 0))
+    meta = json.loads((FLAGSHIP.parent / "real_lines.json").read_text())
+    samples = real_samples(8)
+    lines = [line for line, _ in samples]
+    before = switches()
+    pred = Predictor(model_path=FLAGSHIP, config=OCRConfig(runtime=RuntimeConfig(compute_dtype="bfloat16",
+                                                                                  matmul_precision="default")))
+    rows = pred.predict_batch_tokens(lines, beam_width=3, batch_size=8, max_len=64)
+    torch.cuda.synchronize()
+    after = switches()
+    names = [f"line_{i}" for i in range(len(lines))]
+    got = score(names, meta["texts"][:8], [pred.tokenizer.decode(r) for r in rows])
+    jax_bf16 = score(names, meta["texts"][:8], meta["bf16_strings"][:8])
+    print(f"[precision] switches (cuda.matmul.allow_tf32, cudnn.allow_tf32, float32 matmul precision) before a bf16 "
+          f"'default' Predictor {before}, after its 8-line call {after}; mean CER {got.mean_cer:.6f} against the JAX "
+          f"package's bf16 {jax_bf16.mean_cer:.6f}")
+    if after != before:
+        fail(f"precision: a Predictor call left the switches {after}, found {before}")
+    if not got.mean_cer <= jax_bf16.mean_cer + 0.005:
+        fail(f"precision: the bf16 Predictor's mean CER {got.mean_cer:.6f} > JAX's {jax_bf16.mean_cer:.6f} + 0.005")
+    del pred
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    a, b = (torch.randn(384, 384, device="cuda", generator=gen) for _ in range(2))
+    ref = a.double() @ b.double()
+    err_out, ms_out = rel_err(a @ b, ref), cuda_ms(torch, lambda: a @ b, 50)
+    with matmul_precision("default"):
+        err_in, ms_in = rel_err(a @ b, ref), cuda_ms(torch, lambda: a @ b, 50)
+    print(f"[precision] float32 384x384x384 matmul against float64: max error / max |value| {err_out:.3e} outside any "
+          f"scope ({ms_out:.4f} ms), {err_in:.3e} inside matmul_precision('default') ({ms_in:.4f} ms) on {smi}")
+    if not (err_out < 1e-5 and err_in > 1e-4):
+        fail(f"precision: matmul errors {err_out:.3e} outside (limit 1e-5), {err_in:.3e} inside 'default' (above 1e-4)")
+
+    page = compose_pages([line for line, _ in real_samples(16)])[0][0]
+    from PIL import Image
+
+    pixels = detector.prepare_image(Image.fromarray(page), layout.cfg.image_size)[1]
+    alone = layout.packed_maps(pixels)
+    held, release, entered = threading.Event(), threading.Event(), {}
+    real_maps = detector.predict_maps
+
+    def spy(*args, **kw):  # the forward's own precision, and when it began
+        entered.update(t=time.perf_counter(), switches=switches())
+        return real_maps(*args, **kw)
+
+    def holder():
+        with matmul_precision("default"):
+            held.set()
+            release.wait(30)
+            entered["released"] = time.perf_counter()
+
+    out = []
+    detector.predict_maps = spy
+    try:
+        h = threading.Thread(target=holder)
+        h.start()
+        if not held.wait(30):
+            fail("precision: the holder thread never entered its scope")
+        d = threading.Thread(target=lambda: out.append(layout.packed_maps(pixels)))
+        d.start()
+        d.join(PRECISION_WAIT)
+        waited = d.is_alive() and "t" not in entered
+        release.set()
+        h.join(30)
+        d.join(30)
+    finally:
+        detector.predict_maps = real_maps
+    same = bool(out) and np.array_equal(out[0], alone)
+    print(f"[precision] packed_maps at 'highest' beside a thread holding 'default': waited {waited} (still out after "
+          f"{PRECISION_WAIT} s), began {entered.get('t', 0) - entered.get('released', 0):+.4f} s after the scope "
+          f"ended under {entered.get('switches')}; maps {tuple(alone.shape)} bit-equal to a run without the thread: "
+          f"{same}")
+    if not (waited and not h.is_alive() and not d.is_alive() and entered.get("t", 0) >= entered["released"]):
+        fail("precision: the detector did not wait for the other precision's scope to end")
+    if entered["switches"] != (False, False, "highest") or not same:
+        fail(f"precision: the detector ran under {entered['switches']}, maps bit-equal {same}")
+    return dict(switches_before=before, switches_after=after, mean_cer=got.mean_cer, jax_bf16_mean_cer=jax_bf16.mean_cer,
+                matmul_rel_err=err_out, tf32_matmul_rel_err=err_in, matmul_ms=ms_out, tf32_matmul_ms=ms_in,
+                detector_waited=waited, maps_bit_equal=same)
 
 def phase_head(torch, state, cfg, smi):
     """The decode head fused into K2's last launch. (i) The kernel with
@@ -2883,6 +3010,9 @@ def main() -> int:
     t0 = time.perf_counter()
     bf16 = phase_bf16(torch, state, cfg, smi)
     print(f"[bf16] {json.dumps(bf16['real'])}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    precision = phase_precision(torch, smi)
+    print(f"[precision] {json.dumps(precision)}; the phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     head = phase_head(torch, state, cfg, smi)
     print(f"[head] the phase took {time.perf_counter() - t0:.1f} s")

@@ -277,8 +277,9 @@ __global__ void __launch_bounds__(NT, MinBlocks<T>::value) decoder_block_kernel(
   }
 }
 
+// The launch, or (query) the clusters the card holds at once, into *resident.
 template <int G, typename T>
-cudaError_t launch_block(const BlockArgs<T>& a, int n_img, cudaStream_t stream) {
+cudaError_t launch_block(const BlockArgs<T>& a, int n_img, cudaStream_t stream, int* resident = nullptr) {
   const size_t smem = block_smem_floats(G, a.D, a.DA, a.hd, a.Fl, a.split, TC, Vec<T>::N) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(decoder_block_kernel<G, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -300,6 +301,9 @@ cudaError_t launch_block(const BlockArgs<T>& a, int n_img, cudaStream_t stream) 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (resident != nullptr) {
+    return cudaOccupancyMaxActiveClusters(resident, reinterpret_cast<const void*>(decoder_block_kernel<G, T>), &cfg);
+  }
   void* args[] = {const_cast<BlockArgs<T>*>(&a)};
   return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decoder_block_kernel<G, T>), args);
 }
@@ -352,6 +356,35 @@ int fill_and_launch_block(void* const* ptrs, int mode, int round_x, int n_img, i
 
 extern "C" int decoder_block_smem_bytes(int group, int D, int DA, int hd, int Fl, int split, int vw) {
   return (int)(block_smem_floats(group, D, DA, hd, Fl, split, TC, vw) * sizeof(float));
+}
+
+// The clusters of `group` lanes and DA/hd x split CTAs that the card holds
+// at once with this library's registers and the launch's shared memory
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+extern "C" int decoder_block_resident_clusters(int group, int D, int DA, int hd, int Fl, int split) {
+  const int ncta = hd > 0 ? DA / hd * split : 0;
+  if (group < 1 || group > MAX_GROUP || split < 1 || split > 2 || ncta < 1 || ncta > 16)
+    return -(int)cudaErrorInvalidValue;
+  BlockArgs<Storage> a = {};
+  a.D = D;
+  a.DA = DA;
+  a.hd = hd;
+  a.Fl = Fl;
+  a.lanes = group;
+  a.split = split;
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (group) {
+    case 1: err = launch_block<1, Storage>(a, 1, nullptr, &n); break;
+    case 2: err = launch_block<2, Storage>(a, 1, nullptr, &n); break;
+    case 3: err = launch_block<3, Storage>(a, 1, nullptr, &n); break;
+    case 4: err = launch_block<4, Storage>(a, 1, nullptr, &n); break;
+    case 5: err = launch_block<5, Storage>(a, 1, nullptr, &n); break;
+    case 6: err = launch_block<6, Storage>(a, 1, nullptr, &n); break;
+    case 7: err = launch_block<7, Storage>(a, 1, nullptr, &n); break;
+    default: err = launch_block<8, Storage>(a, 1, nullptr, &n); break;
+  }
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // One tensor-parallel block (mode 0 finish, 1 self, 2 cross, 3 ffn) of the

@@ -50,12 +50,25 @@ struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
 };
 
-// CTAs per SM a kernel's registers are bounded for: two in float; one in
-// bf16, whose 8-wide vectors double the accumulators (and whose shared
-// memory at 8 lanes a cluster leaves room for one CTA anyway).
+// CTAs per SM a kernel's registers are bounded for (K2 and its blocks):
+// one in bf16, whose 8-wide vectors double the accumulators (and whose
+// shared memory at 8 lanes a cluster leaves room for one CTA anyway). In
+// float, K2_F32_MIN_BLOCKS: 1 by default (168 registers, no spills at 3
+// lanes); K2's second float library is built with 2 (80 registers, 68 B
+// of spill stores and 220 B of loads at 3 lanes), which holds twice the
+// clusters. geometry.k2_two_ctas_an_sm picks between them per launch:
+// examples/k2_registers_torch.py, 3 lanes, NVIDIA H100 80GB HBM3, 700 W,
+// one CTA's registers an SM against two: 8 images at Tm 256 0.0471 against
+// 0.0496 ms, 1 image 0.0468 against 0.0491; 64 images 0.2712 against
+// 0.2067 and 8 images at Tm 4096 (16-CTA clusters) 0.1648 against 0.1318,
+// where one CTA an SM holds 15 clusters of 8 (7 of 16) and two hold 30 (14).
+// The blocks take 1: 0.0506 against 0.0525 ms for rank 0 of 2 at 8 images.
+#ifndef K2_F32_MIN_BLOCKS
+#define K2_F32_MIN_BLOCKS 1
+#endif
 template <typename T>
 struct MinBlocks {
-  static constexpr int value = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int value = sizeof(T) == 4 ? K2_F32_MIN_BLOCKS : 1;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -179,8 +179,10 @@ __global__ void __launch_bounds__(NT, MinBlocks<T>::value) decoder_layer_step_ke
   }
 }
 
+// The launch of n_img x lanes/G clusters of H x S CTAs, or (query) the
+// number of such clusters the card can hold at once, into *resident.
 template <int G, typename T>
-cudaError_t launch(const Args<T>& a, int n_img, cudaStream_t stream) {
+cudaError_t launch(const Args<T>& a, int n_img, cudaStream_t stream, int* resident = nullptr) {
   const size_t smem = smem_floats(G, a.D, a.H, a.F, a.split, TC, Vec<T>::N) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(decoder_layer_step_kernel<G, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -202,21 +204,25 @@ cudaError_t launch(const Args<T>& a, int n_img, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (resident != nullptr) {
+    return cudaOccupancyMaxActiveClusters(resident, reinterpret_cast<const void*>(decoder_layer_step_kernel<G, T>),
+                                          &cfg);
+  }
   void* args[] = {const_cast<Args<T>*>(&a)};
   return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(decoder_layer_step_kernel<G, T>), args);
 }
 
 template <typename T>
-int launch_group(const Args<T>& a, int group, int n_img, cudaStream_t s) {
+int launch_group(const Args<T>& a, int group, int n_img, cudaStream_t s, int* resident = nullptr) {
   switch (group) {
-    case 1: return (int)launch<1, T>(a, n_img, s);
-    case 2: return (int)launch<2, T>(a, n_img, s);
-    case 3: return (int)launch<3, T>(a, n_img, s);
-    case 4: return (int)launch<4, T>(a, n_img, s);
-    case 5: return (int)launch<5, T>(a, n_img, s);
-    case 6: return (int)launch<6, T>(a, n_img, s);
-    case 7: return (int)launch<7, T>(a, n_img, s);
-    default: return (int)launch<8, T>(a, n_img, s);
+    case 1: return (int)launch<1, T>(a, n_img, s, resident);
+    case 2: return (int)launch<2, T>(a, n_img, s, resident);
+    case 3: return (int)launch<3, T>(a, n_img, s, resident);
+    case 4: return (int)launch<4, T>(a, n_img, s, resident);
+    case 5: return (int)launch<5, T>(a, n_img, s, resident);
+    case 6: return (int)launch<6, T>(a, n_img, s, resident);
+    case 7: return (int)launch<7, T>(a, n_img, s, resident);
+    default: return (int)launch<8, T>(a, n_img, s, resident);
   }
 }
 
@@ -255,6 +261,23 @@ int fill_and_launch(void* const* ptrs, int n_img, int lanes, int group, int D, i
 // vw: 4 for float storage, 8 for bf16 (the elements of a 16-byte vector)
 extern "C" int decoder_layer_step_smem_bytes(int group, int D, int H, int F, int split, int vw) {
   return (int)(smem_floats(group, D, H, F, split, TC, vw) * sizeof(float));
+}
+
+// The clusters of `group` lanes and H x split CTAs that the card holds at
+// once with this library's registers and the launch's shared memory
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+extern "C" int decoder_layer_step_resident_clusters(int group, int D, int H, int F, int split) {
+  if (group < 1 || group > MAX_GROUP || H < 1 || split < 1 || split > 2 || H * split > 16 || D % H)
+    return -(int)cudaErrorInvalidValue;
+  Args<Storage> a = {};
+  a.D = D;
+  a.H = H;
+  a.F = F;
+  a.lanes = group;
+  a.split = split;
+  int n = 0;
+  const int err = launch_group<Storage>(a, group, 1, nullptr, &n);
+  return err == (int)cudaSuccess ? n : -err;
 }
 
 // ptrs: x, self_k, self_v, mem_k, mem_v, mem_valid, lineage (may be null),

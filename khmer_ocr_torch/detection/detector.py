@@ -3,7 +3,9 @@ host -> artifacts (reference: netra_ocr/detection/detector.py:13-136,
 ``LayoutInference.run`` with heatmap PNG, box-viz PNG, reading-order JSON).
 
 The model runs on the CUDA card unless the caller passes ``device="cpu"``;
-without a card the constructor raises. OpenCV is imported inside the
+without a card the constructor raises. Each forward runs in full float32
+(``PRECISION``, the parity mode), scoped to the forward and its copy to the
+host (``precision.matmul_precision``). OpenCV is imported inside the
 functions that call it.
 """
 
@@ -16,13 +18,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..infer.predictor import resolve_device, set_parity_mode
+from ..infer.predictor import resolve_device
+from ..precision import matmul_precision
 from .config import CLASS_COLORS, ID2LABEL, LayoutConfig
 from .postprocess import extract_layout_elements
 from .preprocess import prepare_image
 from .segformer import SegFormerConfig, build_model, load_hf_checkpoint, predict_maps
 
 logger = logging.getLogger(__name__)
+
+PRECISION = "highest"  # the SegFormer's matmul precision: TF32 off, as the JAX package's parity runs
 
 
 def to_page_size(cm: np.ndarray, hm: np.ndarray, size) -> tuple[np.ndarray, np.ndarray]:
@@ -50,13 +55,12 @@ class LayoutInference:
     ``segformer.`` prefix optional; numpy arrays or tensors), e.g. from
     ``convert.from_jax.segformer_params_from_jax`` or
     ``seeded_segformer_state``; else ``model_dir`` is read by
-    ``load_hf_checkpoint``. The constructor turns TF32 off for matmul and
-    cuDNN (the float32 parity mode) and puts the model in eval mode."""
+    ``load_hf_checkpoint``. The constructor puts the model in eval mode and
+    sets no global switch; each forward runs under ``PRECISION``."""
 
     def __init__(self, model_dir: str | Path | None, config: LayoutConfig | None = None, params=None,
                  seg_cfg: SegFormerConfig | None = None, device=None):
         self.device = resolve_device(device)
-        set_parity_mode()
         self.cfg = config or LayoutConfig()
         if params is not None:
             state, self.seg_cfg = params, seg_cfg or SegFormerConfig()
@@ -78,17 +82,23 @@ class LayoutInference:
         image, pixels, (w, h) = prepare_image(image_source, self.cfg.image_size)
         hb, wb = ((h + 255) // 256) * 256, ((w + 255) // 256) * 256
         x = torch.from_numpy(pixels).to(self.device)
+        with matmul_precision(PRECISION):
+            if not self.cfg.exact_maps:
+                packed = predict_maps(self.model, x, (hb, wb), compact=True)[0].cpu().numpy()
+            else:
+                class_map, heatmap = predict_maps(self.model, x, (hb, wb))
+                class_map, heatmap = class_map[0].to(torch.int32).cpu().numpy(), heatmap[0].cpu().numpy()
         if not self.cfg.exact_maps:
-            return image, *unpack_maps(predict_maps(self.model, x, (hb, wb), compact=True)[0].cpu().numpy(), (w, h))
-        class_map, heatmap = predict_maps(self.model, x, (hb, wb))
-        return image, *to_page_size(class_map[0].to(torch.int32).cpu().numpy(), heatmap[0].cpu().numpy(), (w, h))
+            return image, *unpack_maps(packed, (w, h))
+        return image, *to_page_size(class_map, heatmap, (w, h))
 
     @torch.inference_mode()
     def packed_maps(self, pixels: np.ndarray) -> np.ndarray:
         """(B, 3, S, S) prepared pages -> their packed (B, 2, S, S) uint8 maps
         at model resolution: one forward and one copy to the host."""
         x = torch.from_numpy(pixels).to(self.device)
-        return predict_maps(self.model, x, x.shape[2:], compact=True).cpu().numpy()
+        with matmul_precision(PRECISION):
+            return predict_maps(self.model, x, x.shape[2:], compact=True).cpu().numpy()
 
     def predict_maps_batch(self, image_sources, group: int = 4):
         """Maps for N pages -> [(PIL image, class map, heatmap)], the

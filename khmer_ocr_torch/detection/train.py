@@ -164,11 +164,13 @@ def finetune(model: SegFormer | None = None, cfg: SegFormerConfig | None = None,
     ``data_iter``: an iterator of (images (B, 3, H, W), labels (B, H, W))
     numpy batches, e.g. a real DocLayNet pipeline; by default the synthetic
     generator on ``RandomState(seed)``. lr 6e-5 is HF's semantic-segmentation
-    fine-tune default. Losses stay on the device between log points."""
-    from ..infer.predictor import resolve_device, set_parity_mode
+    fine-tune default. Losses stay on the device between log points. Each
+    step runs under ``detector.PRECISION``, the parity mode."""
+    from ..infer.predictor import resolve_device
+    from ..precision import matmul_precision
+    from .detector import PRECISION
 
     device = resolve_device(device)
-    set_parity_mode()
     model = (model if model is not None else segformer_init(seed, cfg)).to(device)
     step = make_train_step(model, lr)
     if data_iter is None:
@@ -183,7 +185,9 @@ def finetune(model: SegFormer | None = None, cfg: SegFormerConfig | None = None,
     losses, pending = [], []
     for i in range(steps):
         images, labels = next(data_iter)
-        pending.append(step(torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)))
+        images, labels = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
+        with matmul_precision(PRECISION):
+            pending.append(step(images, labels))
         if (i + 1) % log_every == 0 or i + 1 == steps:
             losses.extend(torch.stack(pending).cpu().tolist())
             pending.clear()

@@ -25,7 +25,9 @@ The serving speed mode: ``RuntimeConfig.compute_dtype="bfloat16"`` casts the
 params to bfloat16 (the BatchNorm statistics stay float32), so activations,
 caches and memory follow, and K2 and K3 run on bfloat16 storage;
 ``matmul_precision`` other than "highest" lets the float32 work that remains
-use TF32.
+use TF32. The precision holds for each call only (``decode_prepared`` runs
+under ``precision.matmul_precision``): torch's switches are as the call
+found them once it returns.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..decode.greedy import greedy_decode
 from ..models.ocr_model import encode
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
 from ..parallel.mesh import data_shard, gather_rows, world_of
+from ..precision import check_precision, matmul_precision
 from ..preprocess import PreparedBatch, Preprocessor
 from ..tokenizer import Tokenizer
 
@@ -58,22 +61,17 @@ def resolve_device(device=None) -> torch.device:
 
 def set_parity_mode() -> None:
     """Full float32 matmuls and convolutions (no TF32), the reference's
-    parity mode (float32, "highest")."""
+    parity mode (float32, "highest"), for the whole process."""
     set_matmul_precision("highest")
 
 
-PRECISIONS = ("highest", "high", "default")
-
-
 def set_matmul_precision(precision: str) -> None:
-    """The JAX package's ``matmul_precision`` on torch's switches: "highest"
-    keeps float32 matmuls and convolutions in full float32 (TF32 off);
-    "high" and "default" let both use TF32. These switches are global to
-    the process: a Predictor sets its own at construction and again at
-    each call, so of two Predictors with different settings each call runs
-    under its own, and whatever runs between calls sees the last one set."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"matmul_precision {precision!r}: one of {PRECISIONS}")
+    """The JAX package's ``matmul_precision`` on torch's switches, for the
+    whole process and until changed: "highest" keeps float32 matmuls and
+    convolutions in full float32 (TF32 off); "high" and "default" let both
+    use TF32. For scripts and tests that compute outside the entry points;
+    the entry points scope theirs to each call (``precision.matmul_precision``)."""
+    check_precision(precision)
     tf32 = precision != "highest"
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
@@ -177,7 +175,7 @@ class Predictor:
         rt = self.config.runtime
         if rt.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {rt.compute_dtype!r}: float32 or bfloat16")
-        set_matmul_precision(rt.matmul_precision)
+        check_precision(rt.matmul_precision)
         self.tokenizer = Tokenizer(vocab_path)
         if model_path is not None:
             params, batch_stats, saved_cfg = load_weights(model_path, vocab_size=len(self.tokenizer))
@@ -229,17 +227,18 @@ class Predictor:
 
     @torch.inference_mode()
     def decode_prepared(self, batch: PreparedBatch, beam_width: int, max_len: int | None = None) -> np.ndarray:
-        """One bucket batch -> tokens (B, steps + 1 or + 2) on the host."""
-        set_matmul_precision(self.config.runtime.matmul_precision)
+        """One bucket batch -> tokens (B, steps + 1 or + 2) on the host, under
+        the configured matmul precision."""
         dec_cfg = self._dec_cfg(beam_width, max_len)
         lines, counts, b = self._to_device_batch(batch)
         stats: dict = {}
-        tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats)
+        with matmul_precision(self.config.runtime.matmul_precision):
+            tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats)
+        if self._world > 1:
+            tokens = gather_rows(tokens, self.group)
         self.decode_steps += stats["steps"]
         self.mega_batches += stats.get("mega", 0)
         self.head_batches += stats.get("head", 0)
-        if self._world > 1:
-            tokens = gather_rows(tokens, self.group)
         return tokens[:b].cpu().numpy()
 
     def predict_batch_tokens(self, image_list: list, beam_width: int = 1, batch_size: int = 8,

@@ -14,8 +14,8 @@ All end in the exact overlapping-bin adaptive pool to (2, 32): a (B, 48, 100,
 
 The public functions keep the JAX package's NHWC layout at their boundary;
 the convolutions run in PyTorch's NCHW inside (cuDNN on the card, with TF32
-off: infer/predictor.py::set_parity_mode). Convolutions pad SAME (1 px for
-3x3), max pools are VALID, BatchNorm has eps 1e-5.
+off in the parity mode's precision scope: precision.py). Convolutions pad
+SAME (1 px for 3x3), max pools are VALID, BatchNorm has eps 1e-5.
 Parameters: convs {"w" (O, I, kh, kw), "b" where the conv has one}, BatchNorms
 {"scale", "bias"}, ``se*`` {"fc1", "fc2"} each {"w" (in, out), "b"}; ResNet's
 blocks are lists under ``layer1``..``layer4``. The BatchNorm statistics

@@ -7,7 +7,10 @@ storage type: the ``*_bf16`` libraries with ``-DSTORAGE_BF16``, so each
 nvcc instantiates half the templates and the two run in parallel.
 Libraries land in ``khmer_ocr_torch/_build/``, named by a hash of the
 source, the ``csrc/`` headers it includes and the flags, so an edited source
-or header rebuilds and an unchanged one is reused. ``build()`` starts one
+or header rebuilds and an unchanged one is reused. K2 has a second float
+library, ``decoder_layer_step_two_ctas``, whose registers are bounded for
+two CTAs an SM (``-DK2_F32_MIN_BLOCKS=2``; ``geometry.k2_two_ctas_an_sm``
+picks it for launches with more clusters than one CTA an SM holds). ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them.
 """
 
@@ -31,6 +34,7 @@ SOURCES = {
     "lstm_backward": "lstm_backward.cu",
     "decoder_layer_step": "decoder_layer_step.cu",
     "decoder_layer_step_bf16": "decoder_layer_step.cu",
+    "decoder_layer_step_two_ctas": "decoder_layer_step.cu",
     "decoder_block": "decoder_block.cu",
     "decoder_block_bf16": "decoder_block.cu",
     "decode_loop": "decode_loop.cu",
@@ -78,13 +82,18 @@ def source_files(name: str) -> list[Path]:
 
 
 def extra_flags(name: str) -> tuple[str, ...]:
-    return ("-DSTORAGE_BF16",) if name.endswith("_bf16") else ()
+    if name.endswith("_bf16"):
+        return ("-DSTORAGE_BF16",)
+    return ("-DK2_F32_MIN_BLOCKS=2",) if name.endswith("_two_ctas") else ()
 
 
-def library_name(name: str, dtype) -> str:
+def library_name(name: str, dtype, two_ctas: bool = False) -> str:
     """The library of kernel ``name`` for tensors of ``dtype`` (a torch
-    dtype): the ``_bf16`` build for bfloat16, else the float one."""
-    return f"{name}_bf16" if str(dtype) == "torch.bfloat16" else name
+    dtype): the ``_bf16`` build for bfloat16, else the float one, or with
+    ``two_ctas`` K2's float build bounded for two CTAs an SM."""
+    if str(dtype) == "torch.bfloat16":
+        return f"{name}_bf16"
+    return f"{name}_two_ctas" if two_ctas else name
 
 
 def library_path(name: str) -> Path:

@@ -10,7 +10,9 @@ output (B, D) and writes this position's k and v IN PLACE into
 holds image-local beam parents (None for greedy); slot ``pos`` reads the lane
 itself whatever the table says. Any number of lanes: the kernel runs one
 thread-block cluster per image and group of its lanes
-(``geometry.k2_geometry``), one CTA per attention head.
+(``geometry.k2_geometry``), one CTA per attention head; in float32 from the
+library bounded for one CTA an SM, or, for launches with more clusters than
+that holds at once, for two (``geometry.k2_two_ctas_an_sm``).
 
 Storage type: x, the caches, the memory K/V and the weight matrices are
 all float32 or all bfloat16 (the serving speed mode); biases, LayerNorm
@@ -46,7 +48,7 @@ import torch
 from ...models.layers import NEG_INF, layer_norm
 from ...models.layers import decoder_layer_step as _layer_step_plain
 from . import build
-from .geometry import MAX_CLUSTER, SMEM_LIMIT, k2_geometry
+from .geometry import MAX_CLUSTER, SMEM_LIMIT, k2_geometry, k2_two_ctas_an_sm
 
 WEIGHT_FIELDS = (
     "qkv_w", "qkv_b", "so_w", "so_b", "ln1_s", "ln1_b",
@@ -254,9 +256,12 @@ def _check_operands(name: str, tensors: dict, device, storage: set, cdt) -> None
 
 
 def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage=None, *,
-                              num_heads: int, window: int, lanes: int = 1, split: int | None = None, head=None):
+                              num_heads: int, window: int, lanes: int = 1, split: int | None = None, head=None,
+                              ctas_an_sm: int | None = None):
     """The kernel on CUDA tensors, with ``geometry.k2_geometry``'s CTAs per
-    head or ``split`` (1 or 2) if given."""
+    head or ``split`` (1 or 2) if given, and in float32 the library bounded
+    for ``geometry.k2_two_ctas_an_sm``'s CTAs an SM or ``ctas_an_sm`` (1 or
+    2) if given."""
     global launches, bf16_launches, head_launches
     name = "decoder_layer_step"
     cdt = x.dtype
@@ -291,8 +296,12 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
             raise ValueError(f"{name}: {key} has shape {tuple(tensors[key].shape)}, expected {shape}")
     if lanes < 1 or n_img * lanes != b:
         raise ValueError(f"{name}: {b} rows are not {n_img} images x {lanes} lanes")
-    group, _, ctas = k2_geometry(n_img, lanes, num_heads, tm)
+    group, clusters, ctas = k2_geometry(n_img, lanes, num_heads, tm)
     split = ctas // num_heads if split is None else split
+    if ctas_an_sm is None:
+        ctas_an_sm = 2 if k2_two_ctas_an_sm(clusters, num_heads * split) else 1
+    if ctas_an_sm not in (1, 2):
+        raise ValueError(f"{name}: ctas_an_sm {ctas_an_sm}: 1 or 2")
     if split not in (1, 2) or num_heads * split > MAX_CLUSTER or d % num_heads or (d // num_heads) % (vw * split) \
             or f % (num_heads * split) or (f // (num_heads * split)) % vw:
         raise ValueError(f"{name}: D={d}, F={f}, heads={num_heads}, {split} CTA(s) a head (needs at most "
@@ -302,7 +311,7 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
                          f"most D={d}, with 1 <= v_real={v_real} <= {vp}")
     if not 0 <= pos < w:
         raise ValueError(f"{name}: pos {pos} outside the window {w}")
-    lib = build.load(build.library_name(name, cdt))
+    lib = build.load(build.library_name(name, cdt, two_ctas=ctas_an_sm == 2))
     smem = lib.decoder_layer_step_smem_bytes(group, d, num_heads, f, split, vw)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} bytes of shared memory, more than {SMEM_LIMIT}")

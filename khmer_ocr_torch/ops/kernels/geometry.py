@@ -2,8 +2,8 @@
 
 Plain Python (no torch), so the CPU tests check these rules in any process.
 The measured numbers behind the constants come from
-examples/k1_routes_torch.py (K1, and K1b with --adjoint) and chip_smoke.py's [K2] and [K3] phases
-on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
+examples/k1_routes_torch.py (K1, and K1b with --adjoint), examples/k2_registers_torch.py (K2's float
+library) and chip_smoke.py's [K2] and [K3] phases on an NVIDIA H100 80GB HBM3 at 700 W (see PERF.md).
 """
 
 from __future__ import annotations
@@ -127,6 +127,23 @@ def k2_split(clusters: int, num_heads: int, tm: int) -> int:
     0.0739; Tm=256 one image 0.0466 and 0.0464, 8 images 0.0560 and 0.0495)."""
     fits = 2 * num_heads <= MAX_CLUSTER and clusters * 2 * num_heads <= SMS
     return 2 if fits and tm >= SPLIT_FROM_TM else 1
+
+
+# The SMs whose clusters a launch can hold at one CTA an SM: the H100 holds
+# 30, 15 and 7 clusters of 4, 8 and 16 such CTAs at once
+# (cudaOccupancyMaxActiveClusters, examples/k2_registers_torch.py).
+ONE_CTA_CLUSTER_SMS = 120
+
+
+def k2_two_ctas_an_sm(clusters: int, ctas_per_cluster: int) -> bool:
+    """Whether a float32 K2 launch takes the library bounded for two CTAs an
+    SM (80 registers, spills) rather than one (168, none): only when its
+    clusters outnumber those one CTA an SM holds at once, so that the
+    launch runs in one wave instead of two or more. One CTA an SM measured
+    faster while every cluster fits (8 x 3, Tm 256: 0.0471 against 0.0496
+    ms), two beyond (64 x 3: 0.2067 against 0.2712 ms; 8 x 3 at Tm 4096, 16
+    CTAs a cluster: 0.1318 against 0.1648), NVIDIA H100 80GB HBM3, 700 W."""
+    return clusters > ONE_CTA_CLUSTER_SMS // ctas_per_cluster
 
 
 # --- shared memory of the cluster layer (csrc/decoder_cluster.cuh) ---------

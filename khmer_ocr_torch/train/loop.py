@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import OCRConfig
-from ..infer.predictor import resolve_device, set_parity_mode
+from ..infer.predictor import resolve_device
 from ..parallel.mesh import broadcast_, data_shard, world_of
 from ..tokenizer import Tokenizer
 from .checkpoint import load_checkpoint_full, save_checkpoint
@@ -87,11 +87,12 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
     (params, statistics, moments and step restored; training continues with
     the epoch after the one it closed). ``process_group``: train
     data-parallel over the group, each rank on ``device`` (the batch size,
-    global, must divide among the ranks)."""
+    global, must divide among the ranks). Every step and eye test runs
+    under ``config.runtime.matmul_precision``."""
     device = resolve_device(device)
     rank, world = world_of(process_group)
-    set_parity_mode()
     config = config or OCRConfig()
+    precision = config.runtime.matmul_precision
     tcfg = config.train
     tokenizer = dataset.tokenizer
     mcfg = dataclasses.replace(config.model, vocab_size=len(tokenizer), pad_idx=tokenizer.pad_idx)
@@ -116,7 +117,8 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
         broadcast_(tree_leaves(state.params) + tree_leaves(state.batch_stats), process_group)
     chunk_geom = (config.preprocess.chunk_width, config.preprocess.chunk_stride)
     aug_prob = tcfg.augment_prob if dataset.device_augment else 0.0
-    train_step = make_train_step(mcfg, chunk_geom, aug_prob, tcfg.adam_b1, tcfg.adam_b2, process_group)
+    train_step = make_train_step(mcfg, chunk_geom, aug_prob, tcfg.adam_b1, tcfg.adam_b2, process_group,
+                                 precision=precision)
     # labels carry <sos> and <eos>; the teacher-forcing input (len - 1) must fit the decoder's positions
     max_label_len = min(tcfg.max_label_len, mcfg.decode_max_len + 1)
     pin = device.type == "cuda"
@@ -158,7 +160,7 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
                                 since_log * tcfg.batch_size / (time.perf_counter() - t0))
                 since_log, t0 = 0, time.perf_counter()
             if rank == 0 and epoch_batches % eye_test_every == 0:
-                logits = eval_logits(state.params, state.batch_stats, last, mcfg, chunk_geom)
+                logits = eval_logits(state.params, state.batch_stats, last, mcfg, chunk_geom, precision=precision)
                 true, pred = _eye_test(tokenizer, logits, last["labels"])
                 logger.info("eye test | TRUE: %s | PRED: %s", true, pred)
         if pending:

@@ -13,6 +13,12 @@ one copy of each on the device.
 Randomness (augmentation, then dropout) comes from one ``torch.Generator``
 on the device, drawn in a fixed order.
 
+Each step (forward, gradients, Adam) and ``eval_logits`` run under the
+matmul precision they are given (``precision.matmul_precision``), as the
+JAX package runs its step under ``default_matmul_precision``; ``train()``
+passes ``runtime.matmul_precision``. The default here is "highest", the
+parity mode, where the JAX package's step makers default to "default".
+
 Data-parallel (``group``, a torch.distributed process group of which each
 rank holds its rows of the global batch; parallel/mesh.py): BatchNorm takes
 the global batch's statistics, the loss divides by the global count of
@@ -33,6 +39,7 @@ from ..models.layers import Dropout
 from ..models.ocr_model import forward_train, init_model
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
 from ..parallel.mesh import all_reduce_sum_
+from ..precision import check_precision, matmul_precision
 from .device_augment import augment_lines
 
 ADAM_EPS = 1e-8
@@ -139,23 +146,25 @@ def adam_update(params: list, grads: list, opt_state: dict, lr: float, b1: float
 
 
 def make_train_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84), augment_prob: float = 0.0,
-                    b1: float = 0.9, b2: float = 0.999, group=None):
+                    b1: float = 0.9, b2: float = 0.999, group=None, *, precision: str = "highest"):
     """-> train_step(state, batch, generator, lr) -> (state, {"loss",
     "grad_norm"}), both 0-d tensors left on the device. ``batch``: a dict of
     tensors on the params' device; under ``group`` this rank's rows, and the
-    loss and norm are the global batch's."""
+    loss and norm are the global batch's. The step runs under ``precision``."""
+    check_precision(precision)
 
     def train_step(state: TrainState, batch: dict, generator, lr: float):
         leaves = tree_leaves(state.params)
-        loss, new_stats = loss_fn(state.params, state.batch_stats, batch, model_cfg, generator, True, chunk_geom,
-                                  augment_prob, group)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        loss = loss.detach()
-        if group is not None:
-            all_reduce_sum_(list(grads) + [loss], group)
-        with torch.no_grad():
-            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        adam_update(leaves, list(grads), state.opt_state, lr, b1, b2)
+        with matmul_precision(precision):
+            loss, new_stats = loss_fn(state.params, state.batch_stats, batch, model_cfg, generator, True, chunk_geom,
+                                      augment_prob, group)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+            loss = loss.detach()
+            if group is not None:
+                all_reduce_sum_(list(grads) + [loss], group)
+            with torch.no_grad():
+                grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            adam_update(leaves, list(grads), state.opt_state, lr, b1, b2)
         state.batch_stats = new_stats
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
@@ -164,11 +173,12 @@ def make_train_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 
 
 
 def make_train_multi_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84),
-                          augment_prob: float = 0.0, b1: float = 0.9, b2: float = 0.999):
+                          augment_prob: float = 0.0, b1: float = 0.9, b2: float = 0.999, *,
+                          precision: str = "highest"):
     """-> multi_step(state, stacked, generator, lrs): K single steps in a
     row over a batch dict whose tensors carry a leading K axis, with lrs
     (K,); metrics come back as (K,) tensors."""
-    step = make_train_step(model_cfg, chunk_geom, augment_prob, b1, b2)
+    step = make_train_step(model_cfg, chunk_geom, augment_prob, b1, b2, precision=precision)
 
     def multi_step(state: TrainState, stacked: dict, generator, lrs):
         losses, norms = [], []
@@ -182,9 +192,12 @@ def make_train_multi_step(model_cfg: ModelConfig, chunk_geom: tuple[int, int] = 
 
 
 @torch.no_grad()
-def eval_logits(params, batch_stats, batch: dict, model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84)):
-    """Teacher-forced logits in inference mode (the loop's eye test)."""
-    chunks = batch_chunks(batch, None, False, chunk_geom, 0.0)
-    logits, _ = forward_train(params, batch_stats, chunks, batch["chunk_counts"],
-                              batch["labels"].to(torch.long)[:, :-1], model_cfg, None, False)
+def eval_logits(params, batch_stats, batch: dict, model_cfg: ModelConfig, chunk_geom: tuple[int, int] = (100, 84),
+                *, precision: str = "highest"):
+    """Teacher-forced logits in inference mode (the loop's eye test), under
+    ``precision``."""
+    with matmul_precision(precision):
+        chunks = batch_chunks(batch, None, False, chunk_geom, 0.0)
+        logits, _ = forward_train(params, batch_stats, chunks, batch["chunk_counts"],
+                                  batch["labels"].to(torch.long)[:, :-1], model_cfg, None, False)
     return logits

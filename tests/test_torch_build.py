@@ -18,9 +18,10 @@ import pytest
 from khmer_ocr_torch.ops.kernels import build
 
 SHARED = ("decoder_common.cuh", "decoder_cluster.cuh")
-# K2, its tensor-parallel blocks and K3, each built once per storage type (float, bf16)
-USERS = ("decoder_layer_step", "decoder_layer_step_bf16", "decoder_block", "decoder_block_bf16", "decode_loop",
-         "decode_loop_bf16")
+# K2, its tensor-parallel blocks and K3, each built once per storage type (float, bf16), and K2's second float
+# build, bounded for two CTAs an SM
+USERS = ("decoder_layer_step", "decoder_layer_step_bf16", "decoder_layer_step_two_ctas", "decoder_block",
+         "decoder_block_bf16", "decode_loop", "decode_loop_bf16")
 
 
 @pytest.mark.parametrize("name", sorted(build.SOURCES))
@@ -40,3 +41,16 @@ def test_header_edit_rebuilds_exactly_its_users(tmp_path, monkeypatch, header):
     (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
     assert {name for name in build.SOURCES if before[name] != after[name]} == set(USERS)
+
+
+@pytest.mark.parametrize("dtype,two_ctas,name,flags", [
+    ("torch.float32", False, "decoder_layer_step", ()),
+    ("torch.float32", True, "decoder_layer_step_two_ctas", ("-DK2_F32_MIN_BLOCKS=2",)),
+    ("torch.bfloat16", False, "decoder_layer_step_bf16", ("-DSTORAGE_BF16",)),
+    ("torch.bfloat16", True, "decoder_layer_step_bf16", ("-DSTORAGE_BF16",)),
+])
+def test_k2_library_by_storage_type_and_ctas_an_sm(dtype, two_ctas, name, flags):
+    """K2's float launches take the library bounded for one CTA an SM or,
+    when asked, two; bf16 has one library (one CTA an SM)."""
+    assert build.library_name("decoder_layer_step", dtype, two_ctas=two_ctas) == name
+    assert build.extra_flags(name) == flags and build.SOURCES[name] == "decoder_layer_step.cu"

@@ -143,6 +143,21 @@ def test_k2_two_ctas_a_head_for_long_memories_that_fit(n_img, lanes, heads, tm, 
     assert geometry.k2_geometry(n_img, lanes, heads, tm)[2] == ctas
 
 
+@pytest.mark.parametrize("n_img,lanes,heads,tm,two", [
+    (1, 3, 8, 256, False), (8, 3, 8, 256, False), (15, 3, 8, 256, False), (16, 3, 8, 256, True),
+    (64, 3, 8, 256, True), (8, 3, 8, 4096, True), (7, 3, 8, 4096, False), (9, 3, 8, 4096, False),
+    (30, 3, 4, 256, False), (31, 3, 4, 256, True),
+])
+def test_k2_float_library_by_resident_clusters(n_img, lanes, heads, tm, two):
+    """The library bounded for two CTAs an SM only for launches with more
+    clusters than one CTA an SM holds (30, 15 and 7 clusters of 4, 8 and 16
+    CTAs on the H100): 8 images x 3 lanes at Tm 256 stay at one, 64 images
+    and 8 at Tm 4096 (two CTAs a head) take two; 9 at Tm 4096 go back to one
+    CTA a head, 9 clusters of 8."""
+    _, clusters, ctas = geometry.k2_geometry(n_img, lanes, heads, tm)
+    assert geometry.k2_two_ctas_an_sm(clusters, ctas) == two
+
+
 # ---------------------------------------------------------------------------
 # the JAX side and the port's outputs (pytest process)
 # ---------------------------------------------------------------------------
