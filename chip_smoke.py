@@ -15,7 +15,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      (8, 1024), (256, 256)}: both routes (thread-block clusters, one CTA per
      batch tile) at each shape, the one geometry.k1_route picks timed as the
      kernel, max |diff| <= 1e-4;
-  4. K2 (decoder layer step) against its plain version: the main path's 1
+  4. K2 (decoder layer step, reading the position from a device int32)
+     against its plain version: the main path's 1
      and 8 images x 3 lanes at w=64, Tm 256, 1024 and 4096; 64 images x 3
      lanes, windows 32..256 at pos = w - 1, Tm 32..4096; then 1, 2, 4 and 5
      lanes at w=64, Tm=256, and greedy (no lineage) at 1 image x Tm=4096
@@ -34,13 +35,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      says (beam 2-3 at the flagship) and go to global memory otherwise; the
      beam-3, Tm=128, max_len 64 cases of 8 and 64 images run both routes.
      Tokens equal (near-ties excepted), scores within 1e-4 x max(1, |ref|);
-     timed beside the host-loop K2 path on the same inputs;
+     timed beside the step loop (K2, replayed as CUDA graphs) on the same inputs;
   6. K4 (dynamic shared memory probe): the probe's answer equals the device
      attribute within 1 KB, the next size is refused, row 0 equals the plain
      version; one empty launch and synchronise is timed as its floor;
   7. end to end through Predictor.predict_batch_tokens at the flagship
      configuration (seeded weights), each request with every launch count set
-     to 0 just before it and read just after: beam 3 at max_len 64 and 256
+     to 0 just before it and read just after (K2's launched by the decode's
+     CUDA graph replays, no decode step by the Python loop): beam 3 at max_len 64 and 256
      (K1, K2), tokens against the plain path on the card and against the
      golden tokens of the JAX package (khmer_ocr_torch/assets/smoke_golden.json),
      near-ties excepted; the same request with KHMER_OCR_MEGA_DECODE=1 (K3
@@ -51,13 +53,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      weights index khmer_ocr_torch/assets/flagship, loaded by
      Predictor(model_path=...)) on the 64 rendered lines of
      khmer_ocr_torch/assets/real_lines.npz, beam 3, max_len 64, batch 8:
-     memory against the plain path for each bucket batch; the host loop (K1,
+     memory against the plain path for each bucket batch; the step loop (K1,
      K2) and then KHMER_OCR_MEGA_DECODE=1 (K3 takes the batches inside its
      envelope), each request's strings equal to the JAX package's stored
      with the lines, near-ties excepted, with launch counts; the strings
      scored by the port's metrics (levenshtein_batch built with g++ there and
      held equal to the numpy DP on every pair), mean CER and exact match
      equal to the stored JAX values;
+  8b. the decode's step loop as CUDA graphs (decode/graphs.py) against the
+     Python loop (Predictor(eager_decode=True)), in one process, in turns:
+     the 18 lines at beam 3 (max_len 64 and 256), beam 5, greedy and beam 3
+     with KHMER_OCR_FUSED_HEAD=1, float32 and bf16, and the flagship's 64
+     real lines, float32 and bf16: tokens equal, the golden tokens, JAX's
+     strings and CER; walls, idle shares (torch.profiler), lines/s,
+     captures, replays and K2 launches a replay, K2's kernels in each
+     profiled request's trace equal to its counted launches; the decode
+     shapes each Predictor cached and their bytes; warmup's captures; the
+     graph cache's cost (the flagship's default warmup: its shapes, bytes
+     and memory, all of it freed with the Predictor; a budget that keeps
+     one shape, so every batch captures again, against the cache and the
+     Python loop);
   9. the page path (document): 4 A4 pages of the 64 rendered lines
      (data/pages.py) written as PNG, the seeded SegFormer written as an HF
      checkpoint directory, loaded by KhmerOCRPipeline(engine="custom") with
@@ -69,7 +84,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      pages' known layout; the known layout's 64 crops at beam 3 (K1, K2)
      against the JAX strings, near-ties excepted, with CER; process_pages
      on 4 and 16 pages with launch counts, its detection and recognition
-     spans and both measured apart, against the JAX page texts; the
+     spans and both measured apart (the recognition by the decode's graphs
+     and by the Python loop), against the JAX page texts; the
      searchable PDF's text layer through minipdf;
  10. training at the flagship configuration (seeded weights): K1 with its
      cell-state output and K1b (the LSTM's adjoint, by both its routes:
@@ -108,7 +124,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      float32; the flagship on the 64 rendered lines with
      compute_dtype="bfloat16": strings against the JAX package's bf16
      strings stored with the lines, mean CER at most theirs + 0.005,
-     lines/s beside float32's by the host loop and with
+     lines/s beside float32's by the step loop and with
      KHMER_OCR_MEGA_DECODE=1, launches counted;
  15. matmul precision scoped to each call: a bf16 Predictor at "default"
      beside a LayoutInference leaves torch's TF32 switches as it found them;
@@ -118,7 +134,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
  16. the fused decode head: K2 with ``head`` against its plain version in
      float32 and bf16, timed with and without; 18 flagship lines at beam 3
      with KHMER_OCR_FUSED_HEAD=1, tokens equal to those without it, one head
-     launch a host-loop step;
+     launch a decode step;
  17. the tensor-parallel model axis: K2's blocks (csrc/decoder_block.cu)
      against their plain versions and, both ranks' parts chained in one
      process, against the unsplit K2 step; then two rank processes sharing
@@ -508,6 +524,7 @@ def phase_k2(torch, weights):
     for n_img, lanes, w, tm, greedy in cases:
         b = n_img * lanes
         pos = w - 1
+        at = torch.tensor(pos, dtype=torch.int32, device="cuda")  # K2 reads the position on the card
         x = torch.randn(b, d, device="cuda", generator=gen) * 0.5
         sk = torch.randn(b, cache_len, d, device="cuda", generator=gen) * 0.3
         sv = torch.randn(b, cache_len, d, device="cuda", generator=gen) * 0.3
@@ -517,7 +534,7 @@ def phase_k2(torch, weights):
         mvf = (torch.arange(tm, device="cuda")[None, :] < valid_len[:, None]).float().contiguous()
         lin = None if greedy else torch.randint(0, lanes, (b, w), device="cuda", generator=gen, dtype=torch.int32)
         sk_k, sv_k, sk_p, sv_p = sk.clone(), sv.clone(), sk.clone(), sv.clone()
-        out = K.decoder_layer_step(weights, x, pos, sk_k, sv_k, mk, mv, mvf, lin, num_heads=heads,
+        out = K.decoder_layer_step(weights, x, at, sk_k, sv_k, mk, mv, mvf, lin, num_heads=heads,
                                    window=w, lanes=lanes)
         ref = K.decoder_layer_step_plain(weights, x, pos, sk_p, sv_p, mk, mv, mvf, lin, num_heads=heads,
                                          window=w, lanes=lanes)
@@ -538,7 +555,7 @@ def phase_k2(torch, weights):
         for extra in variants:
             sk_o, sv_o = sk.clone(), sv.clone()
             caches.append((sk_o, sv_o))
-            out_o = K.decoder_layer_step_kernel(weights, x, pos, sk_o, sv_o, mk, mv, mvf, lin, num_heads=heads,
+            out_o = K.decoder_layer_step_kernel(weights, x, at, sk_o, sv_o, mk, mv, mvf, lin, num_heads=heads,
                                                 window=w, lanes=lanes, **extra)
             torch.cuda.synchronize()
             err = max(err, (out_o - ref).abs().max().item(), (sk_o[:, pos] - sk_p[:, pos]).abs().max().item(),
@@ -549,12 +566,12 @@ def phase_k2(torch, weights):
         if not err <= TOL or not untouched or not torch.isfinite(out).all():
             fail(f"K2 decoder_layer_step {shape}: max|diff| {err:.3e} (tol {TOL}), "
                  f"untouched slots identical: {untouched}")
-        step = lambda: K.decoder_layer_step(weights, x, pos, sk_k, sv_k, mk, mv, mvf, lin, num_heads=heads,
+        step = lambda: K.decoder_layer_step(weights, x, at, sk_k, sv_k, mk, mv, mvf, lin, num_heads=heads,
                                             window=w, lanes=lanes)
         ms = graph_ms(torch, step)
         call_ms = cuda_ms(torch, step, 20)
         variant_ms = [graph_ms(torch, lambda: K.decoder_layer_step_kernel(
-            weights, x, pos, c[0], c[1], mk, mv, mvf, lin, num_heads=heads, window=w, lanes=lanes, **extra))
+            weights, x, at, c[0], c[1], mk, mv, mvf, lin, num_heads=heads, window=w, lanes=lanes, **extra))
             for extra, c in zip(variants, caches)]
         other_ms = variant_ms[0] if other is not None else None
         plain_ms = cuda_ms(torch, lambda: K.decoder_layer_step_plain(weights, x, pos, sk_p, sv_p, mk, mv, mvf,
@@ -693,12 +710,13 @@ def phase_k3(torch, params, cfg):
     """K3 against its plain version on seeded flagship decoder weights and
     random memories with ragged validity, by the route geometry.k3_geometry
     picks and, for the K = 3 cases at Tm = 128 and max_len 64, also with the
-    self caches forced to global memory; the host-loop K2 path is timed on
+    self caches forced to global memory; the step loop (K2, its CUDA graphs) is timed on
     the same inputs as the yardstick."""
     import dataclasses
 
     from khmer_ocr_torch.config import DecodeConfig
     from khmer_ocr_torch.decode.beam import beam_decode
+    from khmer_ocr_torch.decode.graphs import GraphCache
     from khmer_ocr_torch.models.ocr_model import pack_decode_params
     from khmer_ocr_torch.ops.kernels import decode_loop as K
     from khmer_ocr_torch.ops.kernels import geometry
@@ -722,6 +740,7 @@ def phase_k3(torch, params, cfg):
           f"with the self caches on chip, {resident[False]} with them in global memory; more images run in waves")
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows, worst = [], 0.0
+    cache = GraphCache()  # the step loop's graphs, captured at each shape's first call
     for tag, prm, n_img, tm, k, ml in cases:
         memory = torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.5
         valid_len = torch.randint(1, tm + 1, (n_img,), device="cuda", generator=gen)
@@ -744,18 +763,18 @@ def phase_k3(torch, params, cfg):
                                                                                     on_chip=route), 3)
             worst = max(worst, err)
             ms = route_ms[on_chip]
-            host_ms = cuda_ms(torch, lambda: beam_decode(prm, memory, pad, cfg,
-                                                         dataclasses.replace(dec, mega_mode="0")), 2)
+            host_ms = cuda_ms(torch, lambda: beam_decode(prm, memory, pad, cfg, dataclasses.replace(dec, mega_mode="0"),
+                                                         graph_cache=cache), 2)
         nbytes, ops = k3_cost(n_img, k, d, f, heads, ml, tm, int(valid_len.sum()), n_layers, vocab, *layer_numel)
         bms, by = bound_ms(nbytes, ops)
         route = "on chip" if on_chip else "global"
         rows.append(dict(shape=shape, route=route, ctas_per_cluster=ctas, chunk=tc, max_abs_err=err, ms=ms,
                          global_ms=route_ms.get(False), on_chip_ms=route_ms.get(True), plain_ms=plain_ms,
-                         host_loop_ms=host_ms, library_ms=None, bound_ms=bms, bound_by=by, images_differing=n_diff))
+                         step_loop_ms=host_ms, library_ms=None, bound_ms=bms, bound_by=by, images_differing=n_diff))
         also = "" if len(route_ms) == 1 else f" (self caches forced global: {route_ms[False]:.3f} ms)"
         print(f"[K3] {shape:27s}: {n_img} cluster(s) of {ctas} CTAs, self caches {route}; tokens equal plain "
               f"({n_diff} near-ties), scores max|diff| {err:.2e}; kernel {ms:.3f} ms{also}, plain {plain_ms:.3f} ms, "
-              f"host-loop K2 path {host_ms:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
+              f"step loop (K2 graphs) {host_ms:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
     return rows, worst, resident[True]
 
 
@@ -1514,30 +1533,40 @@ class MegaDecode:
 
 def counted_run(torch, pred, lines, bw, bs, max_len):
     """One request with every kernel's launch count set to 0 just before it
-    and read just after: (token rows, counts, seconds)."""
+    and read just after: (token rows, counts, seconds). K2's count inside
+    the decode's CUDA graphs is that of each replay's launches
+    (decode/graphs.py); the counts also hold the decode's graph captures and
+    replays and the steps the Python loop ran on the card."""
+    from khmer_ocr_torch.decode import graphs
     from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, smem_probe
 
     kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe}
     torch.cuda.synchronize()
     for mod in kernels.values():
         mod.reset_launches()
+    graphs.reset_counts()
     steps0, mega0 = pred.decode_steps, pred.mega_batches
     t0 = time.perf_counter()
     rows = pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: mod.launches for k, mod in kernels.items()}
-    counts.update(steps=pred.decode_steps - steps0, mega=pred.mega_batches - mega0)
+    counts.update(steps=pred.decode_steps - steps0, mega=pred.mega_batches - mega0, captures=graphs.captures,
+                  replays=graphs.replays, replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
     return rows, counts, wall
 
 
 def check_run(cfg, rows, counts, want: dict, label: str, tag: str = "e2e") -> list:
-    """Launch counts as expected (and non-zero where expected), tokens in
-    the vocabulary; the stripped rows."""
+    """Launch counts as expected (and non-zero where expected), every
+    decode step outside K3 run by the decode's CUDA graphs (none by the
+    Python loop, unless ``want`` says otherwise), tokens in the vocabulary;
+    the stripped rows."""
     import numpy as np
 
+    want = {"eager_steps": 0, "replayed_steps": counts["steps"], **want}
     print(f"[{tag}] {label}: launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']} "
-          f"(expected {want['k1']}, {want['k2']}, {want['k3']}); {counts['steps']} host-loop decode steps, "
+          f"(expected {want['k1']}, {want['k2']}, {want['k3']}); {counts['steps']} decode steps "
+          f"({counts['replays']} graph replays, {counts['eager_steps']} steps by the Python loop), "
           f"{counts['mega']} whole-decode batches")
     if any(counts[k] != v for k, v in want.items()) or counts["k4"]:
         fail(f"{label}: launch counts {counts}, expected {want}")
@@ -1635,6 +1664,7 @@ def phase_e2e(torch, gpu_name, smi):
     results["mega"] = dict(ms=wall * 1e3, lines_per_s=len(lines) / wall, **c)
 
     # beam 5: K2 in lane groups (mega off)
+    pred.predict_batch_tokens(lines, beam_width=5, batch_size=bs, max_len=max_len)  # warm-up: the graphs captured
     rows, c, wall = counted_run(torch, pred, lines, 5, bs, max_len)
     label = f"beam 5, max_len {max_len}"
     got = check_run(cfg, rows, c, dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=0), label)
@@ -1672,7 +1702,7 @@ def phase_real(torch, smi):
     (khmer_ocr_torch/assets/flagship, an index into
     checkpoints/se_vgg_flagship) loaded by Predictor(model_path=...), the 64
     rendered lines of khmer_ocr_torch/assets/real_lines.npz decoded at beam 3
-    by the host loop (K1, K2) and with KHMER_OCR_MEGA_DECODE=1 (K3 inside its
+    by the step loop (K1, K2) and with KHMER_OCR_MEGA_DECODE=1 (K3 inside its
     envelope), each against the JAX package's strings stored with the lines,
     near-ties excepted; memory against the plain path for each bucket batch;
     CER and exact match by the port's scoring against the stored JAX values."""
@@ -1757,6 +1787,277 @@ def phase_real(torch, smi):
         out[mode].update(mean_cer=res.mean_cer, exact_match=res.exact_match_accuracy)
     return dict(load_s=load_s, n_params=n_params, chunk_bytes=chunk_bytes, **{
         k: {kk: v for kk, v in d.items() if kk != "strings"} for k, d in out.items()})
+
+
+GRAPH_REPEATS = 3  # timed requests of each path, in turns
+TRACE_ATTEMPTS = 5  # profiled requests of each path until the trace holds every K2 launch counted
+
+
+def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph"):
+    """The request through the decode's CUDA graphs and through the Python
+    step loop (``Predictor.eager_decode``), each warmed up, then timed
+    GRAPH_REPEATS times in turns, each run counted and held: the graphs' runs
+    replay every step (no capture, no Python step, K2 launched layers x
+    steps times, by the replays), the loop's run every step itself; tokens
+    of every run equal. Then one request of each under torch.profiler,
+    counted too: the card's busy ms, the idle share against the timed walls,
+    and the K2 kernels the trace holds, equal to layers x the request's
+    steps and to its K2 count (on the graph path that count is derived from
+    the replays; a trace short of it, the profiler's loss, is taken again,
+    up to TRACE_ATTEMPTS times), its tokens equal too. Returns
+    (the graphs' token rows, a dict of the numbers)."""
+    from khmer_ocr_torch.decode import graphs
+    from khmer_ocr_torch.profiling import busy_ms, device_events
+
+    layers = pred.model_cfg.dec_layers
+    out = {}
+    try:
+        for eager in (False, True):
+            pred.eager_decode = eager
+            pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up, captures
+        walls = {False: [], True: []}
+        ref = None
+        for _ in range(GRAPH_REPEATS):
+            for eager in (False, True):
+                pred.eager_decode = eager
+                rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
+                rows = [strip(r) for r in rows]
+                walls[eager].append(wall * 1e3)
+                want = dict(k2=layers * c["steps"], captures=0, eager_steps=c["steps"] if eager else 0,
+                            replayed_steps=0 if eager else c["steps"])
+                if any(c[k] != v for k, v in want.items()) or (not eager and c["replays"] == 0) or c["k3"]:
+                    fail(f"{label}, {'Python loop' if eager else 'graphs'}: counts {c}, expected {want} "
+                         f"({'no replay' if eager else 'replays'}, no K3)")
+                if ref is None:
+                    ref = rows
+                if rows != ref:
+                    differ = [i for i, (a, b) in enumerate(zip(ref, rows)) if a != b]
+                    fail(f"{label}: the {'Python loop' if eager else 'graphs'} give other tokens on lines {differ}")
+                out["eager" if eager else "graph"] = c
+        prof = {}
+        for eager in (False, True):
+            pred.eager_decode = eager
+            path = "Python loop" if eager else "graphs"
+            # K2's count is derived on the graph path (decode/graphs.py): hold it against the kernels the trace
+            # holds. The profiler can lose records in a long request (traces of about 125k device events at max_len
+            # 256 have held 2584 and 2343 of 2592 K2 launches, the request's tokens equal), so a trace short of the
+            # count is profiled again; one with more kernels, or other tokens, fails at once.
+            for attempt in range(TRACE_ATTEMPTS):
+                run = []
+                dev, _ = device_events(lambda: run.append(counted_run(torch, pred, lines, bw, bs, max_len)))
+                rows, c, _ = run[0]
+                traced = sum(1 for e in dev if e.get("cat") == "kernel" and "decoder_layer_step_kernel" in e["name"])
+                if [strip(r) for r in rows] != ref or c["k2"] != layers * c["steps"] or traced > c["k2"]:
+                    fail(f"{label}, {path}, profiled: tokens equal {[strip(r) for r in rows] == ref}; the trace "
+                         f"holds {traced} K2 kernels, the counts {c['k2']} launches of {c['steps']} steps x {layers} "
+                         f"layers")
+                if traced == c["k2"]:
+                    break
+                print(f"[{tag}] {label}, {path}, profiled: the trace holds {traced} of the {c['k2']} K2 launches "
+                      f"counted ({len(dev)} device events); profiling again")
+            else:
+                fail(f"{label}, {path}: {TRACE_ATTEMPTS} traces each short of the {c['k2']} K2 launches counted")
+            prof[eager] = busy_ms(dev) if dev else None
+            out["eager" if eager else "graph"].update(traced_k2=traced, trace_attempts=attempt + 1)
+    finally:
+        pred.eager_decode = False
+    for eager, name in ((False, "graph"), (True, "eager")):
+        mean = sum(walls[eager]) / len(walls[eager])
+        busy = prof[eager]
+        out[name] = dict(walls_ms=walls[eager], ms=mean, lines_per_s=len(lines) / mean * 1e3, busy_ms=busy,
+                         idle=None if busy is None else 1.0 - busy / mean, **out[name])
+    g, e = out["graph"], out["eager"]
+    idle = lambda r: "not measured" if r["idle"] is None else f"{r['idle']:.1%} idle (busy {r['busy_ms']:.1f} ms)"
+    print(f"[{tag}] {label}: graphs {fmt_gaps(g['walls_ms'])} ms, {idle(g)}; Python loop {fmt_gaps(e['walls_ms'])} "
+          f"ms, {idle(e)}; {e['ms'] / g['ms']:.2f}x; {g['steps']} steps in {g['replays']} replays "
+          f"({layers * g['steps']} K2 launches, {layers * graphs.EXIT_CHECK_EVERY} a full replay; the profiled "
+          f"request's trace {g['traced_k2']} K2 kernels, its counts {layers} x its steps); tokens equal")
+    return ref, out
+
+
+def phase_decode_graph(torch, smi):
+    """The decode's step loop as CUDA graphs (decode/graphs.py) against the
+    Python loop on the card, in one process, in turns (decode_paths): the
+    18 lines of [e2e] (seeded flagship widths) at beam 3, max_len 64 and
+    256, beam 5 and greedy at max_len 64, and beam 3 with
+    KHMER_OCR_FUSED_HEAD=1, in float32 and bf16 ("default" precision), the
+    graphs' tokens of every run equal to the loop's, beam 3 max_len 64 in
+    float32 also to the golden tokens (near-ties excepted); then the
+    trained flagship on the 64 rendered lines, float32 and bf16: the
+    graphs' strings equal to the loop's and to the JAX package's, the mean
+    CER equal to JAX's. Walls, idle shares, lines/s; the captures and the
+    replays; Predictor.warmup capturing a shape's graphs."""
+    from khmer_ocr_torch.config import ModelConfig, OCRConfig, RuntimeConfig
+    from khmer_ocr_torch.convert.from_jax import seeded_params
+    from khmer_ocr_torch.data.synthetic import synthetic_lines
+    from khmer_ocr_torch.decode import graphs
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.metrics import score
+
+    golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "smoke_golden.json").read_text())
+    cfg = ModelConfig()
+    params, stats = seeded_params(cfg, golden["seed"])
+    lines = synthetic_lines(golden["chunk_counts"], seed=golden["lines_seed"])
+    bs = golden["batch_size"]
+    bf16 = OCRConfig(runtime=RuntimeConfig(compute_dtype="bfloat16", matmul_precision="default"))
+    out = {"smi": smi, "rows": {}}
+    saved = os.environ.get("KHMER_OCR_FUSED_HEAD")
+    try:
+        for dt, config in (("float32", None), ("bfloat16", bf16)):
+            pred = Predictor(params=params, batch_stats=stats, config=config)
+            for bw, max_len, head in ((3, 64, "0"), (3, 256, "0"), (5, 64, "0"), (1, 64, "0"), (3, 64, "1")):
+                os.environ["KHMER_OCR_FUSED_HEAD"] = head
+                label = (f"{dt}, {'greedy' if bw == 1 else f'beam {bw}'}, max_len {max_len}"
+                         + (", KHMER_OCR_FUSED_HEAD=1" if head == "1" else ""))
+                rows, res = decode_paths(torch, pred, lines, bw, bs, max_len, label)
+                if dt == "float32" and (bw, max_len, head) == (3, golden["max_len"], "0"):
+                    n_gold = check_tokens(torch, pred, lines, golden["tokens"], rows, f"{label}, graphs vs golden",
+                                          tag="decode_graph")
+                    print(f"[decode_graph] {label}: {len(lines) - n_gold}/{len(lines)} lines token-identical to the "
+                          "golden tokens")
+                out["rows"][label] = res
+            print(f"[decode_graph] {dt} Predictor, the 18 lines' rows: {len(pred.graph_cache)} decode shapes cached, "
+                  f"their buffers {pred.graph_cache.nbytes / 2**20:.1f} MiB")
+            out[f"shapes_{dt}"] = dict(n=len(pred.graph_cache), bytes=pred.graph_cache.nbytes)
+            del pred
+    finally:
+        if saved is None:
+            os.environ.pop("KHMER_OCR_FUSED_HEAD", None)
+        else:
+            os.environ["KHMER_OCR_FUSED_HEAD"] = saved
+
+    assets = ROOT / "khmer_ocr_torch" / "assets"
+    meta = json.loads((assets / "real_lines.json").read_text())
+    real = [line for line, _ in real_samples(len(meta["texts"]))]
+    names = [f"line_{i}" for i in range(len(real))]
+    bw, max_len, bs = (meta["recipe"][k] for k in ("beam_width", "max_len", "batch_size"))
+    for dt, config in (("float32", None), ("bfloat16", bf16)):
+        pred = Predictor(model_path=FLAGSHIP, config=config)
+        label = f"flagship {dt}, 64 real lines, beam {bw}, max_len {max_len}"
+        rows, res = decode_paths(torch, pred, real, bw, bs, max_len, label)
+        strings = [pred.tokenizer.decode(r) for r in rows]
+        want = meta["strings"] if dt == "float32" else meta["bf16_strings"]
+        cer = score(names, meta["texts"], strings).mean_cer
+        want_cer = meta["mean_cer"] if dt == "float32" else meta["bf16_mean_cer"]
+        equal = sum(a == b for a, b in zip(strings, want))
+        print(f"[decode_graph] {label}: {equal}/{len(real)} strings equal to the JAX package's {dt}, mean CER "
+              f"{cer:.6f} (JAX {want_cer:.6f}); graphs {res['graph']['lines_per_s']:.1f} lines/s, Python loop "
+              f"{res['eager']['lines_per_s']:.1f} on {smi}")
+        if equal != len(real) or cer != want_cer:
+            fail(f"decode_graph {label}: {equal}/{len(real)} strings equal to JAX's, CER {cer} against {want_cer}")
+        out["rows"][label] = dict(equal_to_jax=equal, mean_cer=cer, shapes=len(pred.graph_cache),
+                                  shape_bytes=pred.graph_cache.nbytes, **res)
+        print(f"[decode_graph] {label}: {len(pred.graph_cache)} decode shapes, their buffers "
+              f"{pred.graph_cache.nbytes / 2**20:.1f} MiB")
+        del pred
+
+    # warmup captures the graphs of the shapes it warms: the next request of those shapes captures none
+    pred = Predictor(params=params, batch_stats=stats)
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    pred.warmup(beam_widths=(3,), batch_size=8, chunk_buckets=(4,), max_len=64)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_captures = graphs.captures
+    import numpy as np
+
+    cw, stride = pred._chunk_geom
+    white = [np.full((pred.config.preprocess.img_height, 3 * stride + cw), 255, np.uint8)] * 8  # warmup's lines
+    rows, c, wall = counted_run(torch, pred, white, 3, 8, 64)
+    print(f"[decode_graph] Predictor.warmup (beam 3, 8 lines of 4 chunks, max_len 64): {warm_s:.2f} s, {warm_captures} "
+          f"graphs captured; the next request of that shape: {c['captures']} captures, {c['replays']} replays, "
+          f"{wall * 1e3:.1f} ms on {smi}")
+    if warm_captures == 0 or c["captures"] or c["replays"] == 0:
+        fail(f"decode_graph: warmup captured {warm_captures} graphs, the request after it {c}")
+    out["warmup"] = dict(s=warm_s, warmup_captures=warm_captures, next_ms=wall * 1e3, **c)
+    del pred
+    out["cache"] = graph_cache_cost(torch, smi, params, stats, lines, bs)
+    return out
+
+
+MIB = 2**20
+
+
+def settled_memory(torch) -> tuple[int, int]:
+    """(allocated, reserved) bytes on the card once every dropped object is
+    collected and the allocator's free blocks are released."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def graph_cache_cost(torch, smi, params, stats, lines, bs):
+    """What the decode's graph cache (decode/graphs.py::GraphCache) costs.
+    (1) The trained flagship's default ``Predictor.warmup()`` (256 white
+    lines of chunk buckets 1-4, beam 1 and 3, max_len 256, float32): its
+    wall, the shapes and bytes it caches, the memory it holds; dropping the
+    Predictor gives every byte back. (2) Misses: the 18 seeded lines at beam
+    3, max_len 256 (6 shapes) by a Predictor whose budget keeps one shape,
+    so every batch captures its graphs again, against one whose cache holds
+    them all and against the Python loop, GRAPH_REPEATS times in turns,
+    tokens equal: each miss's cost, the capture of one shape."""
+    from khmer_ocr_torch.decode import graphs
+    from khmer_ocr_torch.infer.predictor import Predictor
+
+    out = {}
+    alloc0, res0 = settled_memory(torch)
+    pred = Predictor(model_path=FLAGSHIP)
+    alloc_w, res_w = settled_memory(torch)
+    graphs.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    captures = graphs.captures
+    alloc1, res1 = settled_memory(torch)
+    n, nbytes, budget = len(pred.graph_cache), pred.graph_cache.nbytes, int(
+        graphs.CACHE_SHARE * torch.cuda.get_device_properties(0).total_memory)
+    del pred
+    alloc2, res2 = settled_memory(torch)
+    print(f"[decode_graph] the flagship's default warmup(): {warm_s:.2f} s, {n} decode shapes, {captures} graphs; "
+          f"their buffers {nbytes / MIB:.1f} MiB (the budget, CACHE_SHARE {graphs.CACHE_SHARE} of the card: "
+          f"{budget / MIB:.0f} MiB); allocated {alloc0 / MIB:.1f} MiB before the Predictor, {alloc_w / MIB:.1f} with "
+          f"its weights, {alloc1 / MIB:.1f} after warmup, {alloc2 / MIB:.1f} after del; reserved {res0 / MIB:.1f} / "
+          f"{res_w / MIB:.1f} / {res1 / MIB:.1f} / {res2 / MIB:.1f} MiB, on {smi}")
+    if alloc2 - alloc0 > 64 * MIB or res2 - res0 > 256 * MIB or n == 0:
+        fail(f"decode_graph: a dropped Predictor kept {(alloc2 - alloc0) / MIB:.1f} MiB allocated, "
+             f"{(res2 - res0) / MIB:.1f} MiB reserved ({n} shapes cached)")
+    out["warmup"] = dict(s=warm_s, shapes=n, captures=captures, shape_bytes=nbytes, budget=budget,
+                         allocated=[alloc0, alloc_w, alloc1, alloc2], reserved=[res0, res_w, res1, res2])
+
+    preds = {"hits": Predictor(params=params, batch_stats=stats),
+             "misses": Predictor(params=params, batch_stats=stats, graph_cache_bytes=1),
+             "Python loop": Predictor(params=params, batch_stats=stats, eager_decode=True)}
+    walls, counts, ref = {k: [] for k in preds}, {}, None
+    for p in preds.values():
+        p.predict_batch_tokens(lines, beam_width=3, batch_size=bs, max_len=256)  # warm-up
+    for _ in range(GRAPH_REPEATS):
+        for name, p in preds.items():
+            rows, c, wall = counted_run(torch, p, lines, 3, bs, 256)
+            rows = [strip(r) for r in rows]
+            ref = rows if ref is None else ref
+            if rows != ref:
+                fail(f"decode_graph: the graph cache's {name} give other tokens")
+            walls[name].append(wall * 1e3)
+            counts[name] = c
+    n_shapes = len(preds["hits"].graph_cache)
+    miss = counts["misses"]
+    if counts["hits"]["captures"] or miss["captures"] == 0 or len(preds["misses"].graph_cache) != 1:
+        fail(f"decode_graph: captures {counts['hits']['captures']} with every shape cached, {miss['captures']} with "
+             f"one; {len(preds['misses'].graph_cache)} shapes kept by the budget of 1 byte")
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    per_shape = (mean["misses"] - mean["hits"]) / n_shapes
+    print(f"[decode_graph] 18 lines, beam 3, max_len 256, {n_shapes} shapes: every shape cached "
+          f"{fmt_gaps(walls['hits'])} ms, one kept (every batch captures again: {miss['captures']} graphs a request) "
+          f"{fmt_gaps(walls['misses'])} ms, the Python loop {fmt_gaps(walls['Python loop'])} ms; a miss costs "
+          f"{per_shape:.1f} ms a shape; tokens equal; on {smi}")
+    out["misses"] = dict(walls_ms=walls, shapes=n_shapes, captures_a_request=miss["captures"],
+                         miss_ms_a_shape=per_shape)
+    return out
 
 
 def phase_document(torch, smi):
@@ -1939,14 +2240,22 @@ def phase_document(torch, smi):
 
         def apart(crops_of_pages, page_paths):
             """Detection of ``page_paths`` and recognition of ``crops_of_pages``,
-            each timed on its own: (detection s, recognition s)."""
+            each timed on its own, the recognition also by the decode's Python
+            step loop: (detection s, recognition s, by the loop s)."""
             t0 = time.perf_counter()
             pipe._detect_crops_batch([str(p) for p in page_paths], pad)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             pred.predict_batch(crops_of_pages, beam_width=bw, batch_size=bs)
             torch.cuda.synchronize()
-            return t1 - t0, time.perf_counter() - t1
+            t2 = time.perf_counter()
+            pred.eager_decode = True
+            try:
+                pred.predict_batch(crops_of_pages, beam_width=bw, batch_size=bs)
+                torch.cuda.synchronize()
+            finally:
+                pred.eager_decode = False
+            return t1 - t0, t2 - t1, time.perf_counter() - t2
 
         # 4a. with the seeded layout model: the texts against the JAX package's
         pipe.process_pages(paths, beam_width=bw, batch_size=bs, pages_per_batch=recipe["group"])  # warm-up
@@ -1982,17 +2291,19 @@ def phase_document(torch, smi):
             runs = []
             for r in range(DOC_RUNS):
                 texts_k, wall_k, counts_k, spans_ms = counted_pages(paths)
-                det_s, rec_s = apart(crops, paths)
+                det_s, rec_s, rec_eager_s = apart(crops, paths)
                 if texts_k != want_texts:
                     fail(f"document: run {r} of process_pages on the known layout reads {texts_k}, not the crops' "
                          f"strings {want_texts}")
                 if counts_k["k1"] == 0 or counts_k["k2"] == 0:
                     fail(f"document: process_pages on the known layout launched K1 {counts_k['k1']}, K2 "
                          f"{counts_k['k2']} times")
-                runs.append(dict(ms=wall_k * 1e3, detect_ms=det_s * 1e3, recognise_ms=rec_s * 1e3, **counts_k))
+                runs.append(dict(ms=wall_k * 1e3, detect_ms=det_s * 1e3, recognise_ms=rec_s * 1e3,
+                                 recognise_eager_ms=rec_eager_s * 1e3, **counts_k))
                 print(f"[document] process_pages, known layout, run {r}: {len(paths)} pages, {len(crops)} lines in "
                       f"{wall_k * 1e3:.1f} ms ({len(paths) / wall_k:.2f} pages/s); apart: detection {det_s * 1e3:.1f} "
-                      f"ms + recognition {rec_s * 1e3:.1f} ms = {(det_s + rec_s) * 1e3:.1f} ms (wall / sum "
+                      f"ms + recognition {rec_s * 1e3:.1f} ms (by the Python step loop {rec_eager_s * 1e3:.1f} ms) = "
+                      f"{(det_s + rec_s) * 1e3:.1f} ms (wall / sum "
                       f"{wall_k / (det_s + rec_s):.3f}); launches K1 {counts_k['k1']}, K2 {counts_k['k2']}, K3 "
                       f"{counts_k['k3']}; spans: {show(spans_ms)}")
             if any({k: u[k] for k in ("k1", "k2", "k3")} != {k: runs[0][k] for k in ("k1", "k2", "k3")}
@@ -2036,18 +2347,23 @@ def phase_document(torch, smi):
         print(f"[document] process_pages on the known layout, medians of {DOC_RUNS} runs on {smi}: {len(paths)} "
               f"pages {med(runs, 'ms'):.1f} ms ({len(paths) / med(runs, 'ms') * 1e3:.2f} pages/s; runs "
               f"{min(u['ms'] for u in runs):.1f}-{max(u['ms'] for u in runs):.1f}), detection apart "
-              f"{med(runs, 'detect_ms'):.1f} ms, recognition apart {med(runs, 'recognise_ms'):.1f} ms, their sum "
+              f"{med(runs, 'detect_ms'):.1f} ms, recognition apart {med(runs, 'recognise_ms'):.1f} ms (by the Python "
+              f"step loop {med(runs, 'recognise_eager_ms'):.1f} ms), their sum "
               f"{statistics.median(sums):.1f}; {len(many)} pages {med(runs_many, 'ms'):.1f} ms "
               f"({len(many) / med(runs_many, 'ms') * 1e3:.2f} pages/s; runs {min(u['ms'] for u in runs_many):.1f}-"
               f"{max(u['ms'] for u in runs_many):.1f}) against {4 * statistics.median(sums):.1f} ms for 4 x "
               f"(detection + recognition) apart")
         out["pages"] = dict(n=len(paths), lines=len(crops), ms=med(runs, "ms"),
                             pages_per_s=len(paths) / med(runs, "ms") * 1e3, detect_ms=med(runs, "detect_ms"),
-                            recognise_ms=med(runs, "recognise_ms"), runs_ms=[u["ms"] for u in runs],
+                            recognise_ms=med(runs, "recognise_ms"), recognise_eager_ms=med(runs, "recognise_eager_ms"),
+                            runs_ms=[u["ms"] for u in runs],
                             sums_ms=sums, detect_split_ms=split, **{k: runs[0][k] for k in ("k1", "k2", "k3")})
         out["pages_16"] = dict(ms=med(runs_many, "ms"), pages_per_s=len(many) / med(runs_many, "ms") * 1e3,
                                runs_ms=[u["ms"] for u in runs_many],
                                **{k: runs_many[0][k] for k in ("k1", "k2", "k3")})
+        print(f"[document] the recognizer's graph cache: {len(pred.graph_cache)} decode shapes, their buffers "
+              f"{pred.graph_cache.nbytes / 2**20:.1f} MiB")
+        out["graph_cache"] = dict(shapes=len(pred.graph_cache), bytes=pred.graph_cache.nbytes)
 
         # the searchable PDF: the layout-aware pipeline's lines, then the known layout's strings of page 0
         font = next(f for f in find_fonts(None) if f.name == "NotoSansKhmer-Regular.ttf")
@@ -2257,7 +2573,7 @@ def phase_bf16(torch, state, cfg, smi):
     flagship on the 64 rendered lines with compute_dtype="bfloat16",
     matmul precision "default": the strings against the JAX package's bf16
     strings stored with the lines, the mean CER at most theirs + 0.005;
-    lines/s beside float32's, by the host loop and with
+    lines/s beside float32's, by the step loop and with
     KHMER_OCR_MEGA_DECODE=1, each request's launches counted."""
     import dataclasses
 
@@ -2265,6 +2581,7 @@ def phase_bf16(torch, state, cfg, smi):
 
     from khmer_ocr_torch.config import DecodeConfig, OCRConfig, RuntimeConfig
     from khmer_ocr_torch.decode.beam import beam_decode
+    from khmer_ocr_torch.decode.graphs import GraphCache
     from khmer_ocr_torch.infer.predictor import Predictor, cast_params
     from khmer_ocr_torch.metrics import score
     from khmer_ocr_torch.models.layers import pack_step_params
@@ -2281,11 +2598,12 @@ def phase_bf16(torch, state, cfg, smi):
     k2_rows, k2_worst, cache_len, w, lanes = [], 0.0, 256, 64, 3
     for n_img, tm in ((1, 256), (8, 256), (64, 256), (1, 4096), (8, 4096), (64, 4096)):
         pos = w - 1
+        at = torch.tensor(pos, dtype=torch.int32, device="cuda")
         x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w)
         x16, sk16, sv16, mk16, mv16 = (t.to(bf) for t in (x, sk, sv, mk, mv))
         a_k, a_v, p_k, p_v = sk16.clone(), sv16.clone(), sk16.clone(), sv16.clone()
         kw = dict(num_heads=heads, window=w, lanes=lanes)
-        out = K2.decoder_layer_step(w16, x16, pos, a_k, a_v, mk16, mv16, mvf, lin, **kw)
+        out = K2.decoder_layer_step(w16, x16, at, a_k, a_v, mk16, mv16, mvf, lin, **kw)
         ref = K2.decoder_layer_step_plain(w16, x16, pos, p_k, p_v, mk16, mv16, mvf, lin, **kw)
         torch.cuda.synchronize()
         err = max((out.float() - ref.float()).abs().max().item(),
@@ -2299,9 +2617,9 @@ def phase_bf16(torch, state, cfg, smi):
         if not (err <= tol and untouched and bool(torch.isfinite(out.float()).all())):
             fail(f"bf16 K2 {shape}: max|diff| {err:.3e} (tol {tol:.3e}), untouched slots identical: {untouched}")
         k2_worst = max(k2_worst, err)
-        ms16 = graph_ms(torch, lambda: K2.decoder_layer_step(w16, x16, pos, a_k, a_v, mk16, mv16, mvf, lin, **kw))
+        ms16 = graph_ms(torch, lambda: K2.decoder_layer_step(w16, x16, at, a_k, a_v, mk16, mv16, mvf, lin, **kw))
         f_k, f_v = sk.clone(), sv.clone()
-        ms32 = graph_ms(torch, lambda: K2.decoder_layer_step(w32, x, pos, f_k, f_v, mk, mv, mvf, lin, **kw))
+        ms32 = graph_ms(torch, lambda: K2.decoder_layer_step(w32, x, at, f_k, f_v, mk, mv, mvf, lin, **kw))
         plain_ms = cuda_ms(torch, lambda: K2.decoder_layer_step_plain(w16, x16, pos, p_k, p_v, mk16, mv16, mvf, lin,
                                                                       **kw), 2)
         bms, by = bound_ms(*k2_typed_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lin, w16, 2), 2)
@@ -2329,6 +2647,7 @@ def phase_bf16(torch, state, cfg, smi):
     sharp32 = {**state, "dec": {**state["dec"], "out": {**state["dec"]["out"],
                                                          "w": state["dec"]["out"]["w"] * SHARPEN}}}
     sharp = cast_params(sharp32, bf)
+    cache = GraphCache()  # the step loop's graphs, captured at each shape's first call
     for n_img in (8, 64):
         tm, k, ml = 128, 3, 64
         memory = torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.5
@@ -2347,19 +2666,19 @@ def phase_bf16(torch, state, cfg, smi):
             same32 = sum(bool(torch.equal(got[0][i], tok32[i])) for i in range(n_img))
             ms16 = cuda_ms(torch, lambda: K3.fused_beam_decode_kernel(sharp, m16, pad, cfg, dec), 3)
             ms32 = cuda_ms(torch, lambda: K3.fused_beam_decode_kernel(sharp32, memory, pad, cfg, dec), 3)
-            host16 = cuda_ms(torch, lambda: beam_decode(sharp, m16, pad, cfg, dataclasses.replace(dec, mega_mode="0")),
-                             2)
+            host16 = cuda_ms(torch, lambda: beam_decode(sharp, m16, pad, cfg, dataclasses.replace(dec, mega_mode="0"),
+                                                        graph_cache=cache), 2)
         k3_worst, k3_gaps = max(k3_worst, err), k3_gaps + gaps
         _, on_chip, _ = geometry.k3_geometry(k, d, heads, f, ml, vocab, n_layers, tm, 2)
         nbytes, ops = k3_cost(n_img, k, d, f, heads, ml, tm, int(valid_len.sum()), n_layers, vocab, *layer_numel, 2)
         bms, by = bound_ms(nbytes, ops, 2)
         k3_rows.append(dict(shape=shape, route="on chip" if on_chip else "global", max_abs_err=err, ms=ms16,
-                            f32_ms=ms32, plain_ms=plain_ms, host_loop_ms=host16, library_ms=None, bound_ms=bms,
+                            f32_ms=ms32, plain_ms=plain_ms, step_loop_ms=host16, library_ms=None, bound_ms=bms,
                             bound_by=by, images_differing=n_diff, exempt_gaps=gaps, images_equal_f32=same32))
         print(f"[bf16] K3 {shape}: self caches {'on chip' if on_chip else 'global'}; with the head x{SHARPEN:g}, "
               f"tokens equal the plain bf16 version but {n_diff} near-ties (gaps {fmt_gaps(gaps)}), answer scores "
               f"max|diff| {err:.2e}; {same32}/{n_img} images token-equal to the float32 kernel's; bf16 {ms16:.3f} ms "
-              f"against float32 {ms32:.3f} ms, plain {plain_ms:.1f} ms, host-loop bf16 {host16:.1f} ms; bound {bms:.4f} ms ({by}), {bms / ms16:.2%} of roofline")
+              f"against float32 {ms32:.3f} ms, plain {plain_ms:.1f} ms, step loop bf16 {host16:.1f} ms; bound {bms:.4f} ms ({by}), {bms / ms16:.2%} of roofline")
 
     assets = ROOT / "khmer_ocr_torch" / "assets"
     meta = json.loads((assets / "real_lines.json").read_text())
@@ -2384,7 +2703,7 @@ def phase_bf16(torch, state, cfg, smi):
             equal = sum(a == b for a, b in zip(strings, ref))
             real[f"{dt}_{mode}"] = dict(lines_per_s=len(lines) / wall, ms=wall * 1e3, mean_cer=res.mean_cer,
                                         exact_match=res.exact_match_accuracy, equal_to_jax=equal, **c)
-            print(f"[bf16] flagship {dt}, {'KHMER_OCR_MEGA_DECODE=1' if mode == 'k3' else 'host loop'}: "
+            print(f"[bf16] flagship {dt}, {'KHMER_OCR_MEGA_DECODE=1' if mode == 'k3' else 'step loop'}: "
                   f"{len(lines)} lines in {wall * 1e3:.1f} ms ({len(lines) / wall:.1f} lines/s) on {smi}; "
                   f"{equal}/{len(lines)} strings equal to the JAX package's {dt}; mean CER {res.mean_cer:.6f} "
                   f"(JAX {dt}: {meta['mean_cer' if dt == 'float32' else 'bf16_mean_cer']:.6f}); launches K1 "
@@ -2542,10 +2861,11 @@ def phase_head(torch, state, cfg, smi):
         head = K2.head_weights({k: v.to(cdt) for k, v in state["dec"]["out"].items()})
         for n_img, tm in ((1, 256), (8, 256)):
             pos = w - 1
+            at = torch.tensor(pos, dtype=torch.int32, device="cuda")
             x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w, cdt)
             kw = dict(num_heads=heads, window=w, lanes=lanes)
             a_k, a_v, p_k, p_v = sk.clone(), sv.clone(), sk.clone(), sv.clone()
-            out, logp = K2.decoder_layer_step(wt, x, pos, a_k, a_v, mk, mv, mvf, lin, head=head, **kw)
+            out, logp = K2.decoder_layer_step(wt, x, at, a_k, a_v, mk, mv, mvf, lin, head=head, **kw)
             ref, ref_lp = K2.decoder_layer_step_plain(wt, x, pos, p_k, p_v, mk, mv, mvf, lin, head=head, **kw)
             torch.cuda.synchronize()
             v = head[2]
@@ -2561,9 +2881,9 @@ def phase_head(torch, state, cfg, smi):
                 fail(f"head K2 {shape}: layer max|diff| {x_err:.3e} (tol {x_tol:.3e}), log-probs {lp_err:.3e} "
                      f"(tol {lp_tol:.3e}), padded columns NEG_INF: {padded}")
             worst = max(worst, x_err if dt == "float32" else 0.0, lp_err if dt == "float32" else 0.0)
-            ms = graph_ms(torch, lambda: K2.decoder_layer_step(wt, x, pos, a_k, a_v, mk, mv, mvf, lin, head=head,
+            ms = graph_ms(torch, lambda: K2.decoder_layer_step(wt, x, at, a_k, a_v, mk, mv, mvf, lin, head=head,
                                                                **kw))
-            ms_no = graph_ms(torch, lambda: K2.decoder_layer_step(wt, x, pos, a_k, a_v, mk, mv, mvf, lin, **kw))
+            ms_no = graph_ms(torch, lambda: K2.decoder_layer_step(wt, x, at, a_k, a_v, mk, mv, mvf, lin, **kw))
             plain_ms = cuda_ms(torch, lambda: K2.decoder_layer_step_plain(wt, x, pos, p_k, p_v, mk, mv, mvf, lin,
                                                                           head=head, **kw), 2)
             bms, by = bound_ms(*k2_typed_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lin, wt,
@@ -2597,7 +2917,7 @@ def phase_head(torch, state, cfg, smi):
           f"launches, {c1['head']} with the head, {c1['head_batches']} batches), without {w0 * 1e3:.1f} ms (K2 "
           f"{c0['k2']}, {c0['head']} with the head); {SERVE_LINES - n_diff}/{SERVE_LINES} lines token-equal on {smi}")
     if c1["head"] == 0 or c0["head"] or c1["head"] != c1["steps"]:
-        fail(f"head: launches {c1} with the head, {c0} without (one head launch a host-loop step expected)")
+        fail(f"head: launches {c1} with the head, {c0} without (one head launch a decode step expected)")
     return dict(rows=rows, err=worst, launches=c1["head"], on_ms=w1 * 1e3, off_ms=w0 * 1e3, n_diff=n_diff)
 
 
@@ -2668,7 +2988,8 @@ def phase_tp_blocks(torch, state, cfg):
         for tm in (256, 4096):
             x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w, cdt)
             ref_k, ref_v = sk.clone(), sv.clone()
-            ref = K2.decoder_layer_step(full, x, pos, ref_k, ref_v, mk, mv, mvf, lin, num_heads=heads, window=w,
+            ref = K2.decoder_layer_step(full, x, torch.tensor(pos, dtype=torch.int32, device="cuda"), ref_k, ref_v, mk,
+                                        mv, mvf, lin, num_heads=heads, window=w,
                                         lanes=lanes)
             cols = [slice(m * da, (m + 1) * da) for m in range(TP_WORLD)]
             caches = [(sk[..., c].contiguous(), sv[..., c].contiguous()) for c in cols]
@@ -2994,6 +3315,9 @@ def main() -> int:
     real = phase_real(torch, smi)
     print(f"[real] {json.dumps(real)}")
     t0 = time.perf_counter()
+    decode_graph = phase_decode_graph(torch, smi)
+    print(f"[decode_graph] {json.dumps(decode_graph)}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     document = phase_document(torch, smi)
     print(f"[document] {json.dumps(document)}; the phase took {time.perf_counter() - t0:.1f} s")
     tr = phase_train(torch, smi)
@@ -3023,6 +3347,8 @@ def main() -> int:
     host = phase_host(torch, smi)
     print(f"[host] {json.dumps(host)}; the phase took {time.perf_counter() - t0:.1f} s")
 
+    from khmer_ocr_torch.models.ocr_model import EXIT_CHECK_EVERY
+
     main_len = min(k for k in e2e if isinstance(k, int))
     k1_main = next(r for r in k1_rows if r["shape"] == "2x B=8 T=1024")
     k1b_main = next(r for r in k1b_rows if r["shape"] == "2x B=32 T=512")
@@ -3050,8 +3376,11 @@ def main() -> int:
         entry("decoder_layer_step", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
               k2_err, k2_main, k2_rows, document_launches=document["pages"]["k2"],
-              parallel_serve_launches=parallel["k2_serve"]),
-        # launches: the flagship's bf16 request by the host loop ([bf16]); the library built with STORAGE_BF16
+              parallel_serve_launches=parallel["k2_serve"], graph_replays=e2e[main_len]["replays"],
+              launches_a_replay=cfg.dec_layers * EXIT_CHECK_EVERY,
+              traced_launches=decode_graph["rows"]["float32, beam 3, max_len 64"]["graph"]["traced_k2"],
+              pos="device int32 (one launch serves every position of a captured graph)"),
+        # launches: the flagship's bf16 request by the step loop ([bf16]); the library built with STORAGE_BF16
         entry("decoder_layer_step_bf16", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), bf16["k2_launches"],
               bf16["k2_err"], next(r for r in bf16["k2_rows"] if r["shape"] == "8x3 w=64 Tm=256"), bf16["k2_rows"],
@@ -3071,14 +3400,14 @@ def main() -> int:
 
         # launches: the KHMER_OCR_MEGA_DECODE=1 request, K3's path
         entry("fused_beam_decode", "decode_loop.cu", tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"),
-              e2e["mega"]["k3"], k3_err, k3_main, k3_rows, host_loop_ms=k3_main["host_loop_ms"],
+              e2e["mega"]["k3"], k3_err, k3_main, k3_rows, step_loop_ms=k3_main["step_loop_ms"],
               ctas_per_cluster=k3_main["ctas_per_cluster"], self_caches=k3_main["route"],
               global_ms=k3_main["global_ms"], resident_clusters=k3_resident),
         # launches: the flagship's bf16 request with KHMER_OCR_MEGA_DECODE=1 ([bf16])
         entry("fused_beam_decode_bf16", "decode_loop.cu",
               tpu_kernel_site("ops/pallas/decode_loop.py", "fused_beam_decode"), bf16["k3_launches"], bf16["k3_err"],
               bf16["k3_rows"][0], bf16["k3_rows"], storage="bfloat16", f32_ms=bf16["k3_rows"][0]["f32_ms"],
-              host_loop_ms=bf16["k3_rows"][0]["host_loop_ms"], first_step=bf16["k3_first_step"],
+              step_loop_ms=bf16["k3_rows"][0]["step_loop_ms"], first_step=bf16["k3_first_step"],
               flagship_memory=bf16["k3_real"], resident_clusters={k: n for k, (_, n) in bf16["k3_resident"].items()}),
         # launches: the probe's ladder and bisection, K4's path
         entry("smem_probe", "smem_probe.cu", tpu_kernel_site("probe_vmem.py", "try_mb"), k4["launches"],

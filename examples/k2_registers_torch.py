@@ -136,6 +136,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(11)
     cache_len, w, lanes = 256, 64, 3
     pos = w - 1
+    at = torch.tensor(pos, dtype=torch.int32, device="cuda")  # K2 reads the position on the card
     rows = []
     for n_img, tm in CASES:
         x, sk, sv, mk, mv, mvf, lin, _ = cs.k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w)
@@ -146,11 +147,11 @@ def main() -> int:
         for n in (1, 2, 2, 1):
             use(n)
             ck, cv = sk.clone(), sv.clone()
-            out = K2.decoder_layer_step(weights, x, pos, ck, cv, mk, mv, mvf, lin, **kw)
+            out = K2.decoder_layer_step(weights, x, at, ck, cv, mk, mv, mvf, lin, **kw)
             torch.cuda.synchronize()
             outs[n] = torch.cat([out, ck[:, pos], cv[:, pos]], dim=1)
             err[n] = (outs[n] - torch.cat([ref, pk[:, pos], pv[:, pos]], dim=1)).abs().max().item()
-            times[n].append(cs.graph_ms(torch, lambda: K2.decoder_layer_step(weights, x, pos, ck, cv, mk, mv, mvf, lin,
+            times[n].append(cs.graph_ms(torch, lambda: K2.decoder_layer_step(weights, x, at, ck, cv, mk, mv, mvf, lin,
                                                                             **kw)))
         split = geometry.k2_geometry(n_img, lanes, heads, tm)[2] // heads
         rows.append(dict(shape=f"{n_img}x{lanes} w={w} Tm={tm}", ctas_per_head=split,

@@ -13,9 +13,9 @@ beam 3) through ``khmer_ocr_torch``'s Predictor and prints:
     encode ms (transfer, windows, backbone, encoder, BiLSTM) and decode ms;
   * for one whole request under torch.profiler: the device's busy time (the
     union of kernel and memcpy intervals), its idle share against the
-    request's unprofiled wall time, device launches per host-loop decode
-    step, and device time by kernel family (K1, K2, K3, convolution, matmul,
-    other).
+    request's unprofiled wall time, device launches per decode step (the
+    decode's CUDA graph replays launch them: decode/graphs.py), and device
+    time by kernel family (K1, K2, K3, convolution, matmul, other).
 
 With ``--train``, the train step at the flagship widths (seeded weights,
 dropout 0.1, device augmentation p 0.8, Adam) on batches of 32 synthetic
@@ -180,7 +180,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 st: dict = {}
-                beam_decode(pred.params, memory, pad, cfg, dec_cfg, stats=st)
+                beam_decode(pred.params, memory, pad, cfg, dec_cfg, stats=st, graph_cache=pred.graph_cache)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
                 if rep:
@@ -192,7 +192,9 @@ def main() -> int:
               f"{r['encode_ms']:.2f} ms, decode {r['decode_ms']:.2f} ms over {r['steps']} steps "
               f"({r['decode_ms_per_step']:.3f} ms/step)")
 
-    # one whole request: unprofiled wall time, then the profiled trace
+    # one whole request: unprofiled wall time after a warm-up (the Predictor's precision scope is another
+    # decode shape for the CUDA graphs than the calls above), then the profiled trace
+    pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)

@@ -5,6 +5,9 @@
 // B = images x K lanes of a decode batch, in one launch:
 //   1. packed self-QKV projection of x (B, D);
 //   2. k, v written into the (B, L, D) self caches at slot `pos`, in place;
+//      `pos` is read from device memory (one int32), as the TPU kernel reads
+//      it from its scalar-prefetch operand, so one captured launch serves
+//      every position of a CUDA graph's replays;
 //   3. self-attention over slots t <= pos, each slot read through the
 //      image-local beam lineage: k_read[b, t] = k[img*K + lin[b, t], t]
 //      (slot pos reads the lane's own new k, v); greedy runs without lineage;
@@ -84,7 +87,8 @@ struct Args {
   const T* head_w;         // (D, Vp), or nullptr: no head
   const float* head_b;     // (Vp)
   float* logp;             // (B, Vp)
-  int D, H, F, L, Tm, pos, lin_stride, lanes, split, Vp, v_real;
+  const int* pos;          // the decode position, on the device
+  int D, H, F, L, Tm, lin_stride, lanes, split, Vp, v_real;
 };
 
 // One cluster of H x S CTAs per (image, group of G lanes); blockIdx.x =
@@ -132,7 +136,7 @@ __global__ void __launch_bounds__(NT, MinBlocks<T>::value) decoder_layer_step_ke
   io.F = a.F;
   io.S = S;
   io.Tm = a.Tm;
-  io.pos = a.pos;
+  io.pos = *a.pos;
   cluster_layer<G, T>(cluster, s, io, true);
 
   for (int i = tid; i < G * sw; i += NT) {
@@ -227,8 +231,8 @@ int launch_group(const Args<T>& a, int group, int n_img, cudaStream_t s, int* re
 }
 
 template <typename T>
-int fill_and_launch(void* const* ptrs, int n_img, int lanes, int group, int D, int H, int F, int L, int Tm, int pos,
-                    int lin_stride, int split, int Vp, int v_real, cudaStream_t s) {
+int fill_and_launch(void* const* ptrs, const int* pos, int n_img, int lanes, int group, int D, int H, int F, int L,
+                    int Tm, int lin_stride, int split, int Vp, int v_real, cudaStream_t s) {
   Args<T> a;
   a.x = static_cast<const T*>(ptrs[0]);
   a.self_k = static_cast<T*>(ptrs[1]);
@@ -282,7 +286,9 @@ extern "C" int decoder_layer_step_resident_clusters(int group, int D, int H, int
 
 // ptrs: x, self_k, self_v, mem_k, mem_v, mem_valid, lineage (may be null),
 // the 18 layer weights in layer_weights order, x_out, head_w, head_b, logp
-// (the last three null without the head). Contiguous device pointers,
+// (the last three null without the head). pos: a device int32, the
+// position, 0 <= pos < lin_stride (the window), which the caller checks:
+// the kernel reads it and cannot report it. Contiguous device pointers,
 // 16-byte aligned: x, caches, memory K/V, weight matrices, x_out and head_w
 // of the storage type (bf16 when `bf16`, which must name this library's
 // type, else f32), every other operand
@@ -290,17 +296,17 @@ extern "C" int decoder_layer_step_resident_clusters(int group, int D, int H, int
 // H x split CTAs per cluster (at most 16, split 1 or 2), D/(H split) and
 // F/(H split) multiples of the vector width (4 in f32, 8 in bf16), Vp a
 // multiple of it times H split and at most D. Returns a cudaError_t.
-extern "C" int decoder_layer_step_launch(void* const* ptrs, int n_img, int lanes, int group, int D, int H, int F,
-                                         int L, int Tm, int pos, int lin_stride, int split, int bf16, int Vp,
+extern "C" int decoder_layer_step_launch(void* const* ptrs, const int* pos, int n_img, int lanes, int group, int D,
+                                         int H, int F, int L, int Tm, int lin_stride, int split, int bf16, int Vp,
                                          int v_real, void* stream) {
   const int vw = bf16 ? 8 : 4;
   const bool head = ptrs[8 + N_WEIGHTS] != nullptr;
   if (lanes < 1 || group < 1 || group > MAX_GROUP || lanes % group || H < 1 || split < 1 || split > 2 ||
       H * split > 16 || D % H || F % (H * split) || (D / H) % (vw * split) || (F / (H * split)) % vw ||
-      (head && (Vp % (vw * H * split) || Vp > D || v_real < 1 || v_real > Vp)))
+      (head && (Vp % (vw * H * split) || Vp > D || v_real < 1 || v_real > Vp)) || pos == nullptr)
     return (int)cudaErrorInvalidValue;
   if (bf16 != (int)(sizeof(Storage) == 2)) return (int)cudaErrorInvalidValue;  // the other library's storage type
-  return fill_and_launch<Storage>(ptrs, n_img, lanes, group, D, H, F, L, Tm, pos, lin_stride, split, Vp, v_real,
+  return fill_and_launch<Storage>(ptrs, pos, n_img, lanes, group, D, H, F, L, Tm, lin_stride, split, Vp, v_real,
                                   static_cast<cudaStream_t>(stream));
 }
 

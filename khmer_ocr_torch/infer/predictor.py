@@ -4,9 +4,11 @@ Each chunk-bucket batch is padded to its batch bucket (repeating its last
 line), shipped to the device as uint8 through pinned memory, normalised and
 cut into windows there, encoded, and decoded with beam search (beam_width >
 1) or greedy decoding. On the card the BiLSTM recurrence runs kernel K1 and
-every decoder layer step runs kernel K2; with ``KHMER_OCR_MEGA_DECODE=1``
-(read at each call) a beam batch inside kernel K3's envelope decodes in one
-launch of K3 instead.
+every decoder layer step runs kernel K2, the steps as captured CUDA graphs
+replayed per cache window (decode/graphs.py; ``warmup`` captures those of
+the shapes it warms); with ``KHMER_OCR_MEGA_DECODE=1`` (read at each call)
+a beam batch inside kernel K3's envelope decodes in one launch of K3
+instead.
 
 The device is the caller's choice: ``device=None`` means the CUDA card, and
 without one the constructor raises; ``device="cpu"`` runs the plain PyTorch
@@ -41,6 +43,7 @@ import torch
 from ..config import DecodeConfig, ModelConfig, OCRConfig
 from ..convert.from_jax import load_npz, params_from_jax, params_to_jax
 from ..decode.beam import beam_decode
+from ..decode.graphs import GraphCache
 from ..decode.greedy import greedy_decode
 from ..models.ocr_model import encode
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
@@ -91,19 +94,23 @@ def cast_params(params, dtype):
 
 @torch.inference_mode()
 def infer_batch(params: dict, lines: torch.Tensor, counts: torch.Tensor, model_cfg: ModelConfig,
-                dec_cfg: DecodeConfig, chunk_geom: tuple[int, int], model_group=None, stats: dict | None = None):
+                dec_cfg: DecodeConfig, chunk_geom: tuple[int, int], model_group=None, stats: dict | None = None,
+                eager: bool = False, graph_cache=None):
     """One bucket batch on the params' device: uint8 lines (B, H, Wb) and
     chunk counts (B,) -> tokens (B, steps + 1 or + 2), normalised, cut into
     windows, encoded and decoded (beam when ``dec_cfg.beam_width`` > 1) in
     the params' dtype. ``model_group``: a tensor-parallel group, with
-    ``params`` this rank's part. ``stats`` receives the decode's counts."""
+    ``params`` this rank's part. ``stats`` receives the decode's counts.
+    ``eager``: the decode's Python step loop on the card too, in place of
+    its CUDA graphs (the graphs' oracle); ``graph_cache``: where the graphs
+    are kept (decode/graphs.py::GraphCache; None: for this call alone)."""
     stats = {} if stats is None else stats
     # the compute dtype follows the params (their patch projection's)
     chunks = device_chunk(unit_normalize(u8_to_unit(lines)), chunk_geom).to(params["patch"]["proj"]["w"].dtype)
     memory, pad_mask = encode(params, chunks, counts, model_cfg, model_group=model_group)
-    if dec_cfg.beam_width > 1:
-        return beam_decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group)
-    return greedy_decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group)
+    decode = beam_decode if dec_cfg.beam_width > 1 else greedy_decode
+    return decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group, eager=eager,
+                  graph_cache=graph_cache)
 
 
 def load_weights(model_path: str | Path, vocab_size: int | None = None):
@@ -163,11 +170,17 @@ class Predictor:
     ``load_weights`` reads. ``process_group``: serve data-parallel over the
     group, this rank on ``device``; every rank must call with the same
     lines. ``config.runtime.compute_dtype`` and ``matmul_precision`` pick
-    parity or speed mode (module docstring)."""
+    parity or speed mode (module docstring). The decode's CUDA graphs are
+    kept in ``graph_cache`` (decode/graphs.py::GraphCache), freed with the
+    Predictor; ``graph_cache_bytes`` bounds the bytes of their buffers
+    (None: ``graphs.CACHE_SHARE`` of the card's memory). ``eager_decode``:
+    decode with the Python step loop on the card too, not its CUDA graphs
+    (the graphs' oracle; no serving path sets it)."""
 
     def __init__(self, params=None, batch_stats=None, model_cfg: ModelConfig | None = None, device=None,
                  config: OCRConfig | None = None, vocab_path: str | Path | None = None,
-                 model_path: str | Path | None = None, process_group=None):
+                 model_path: str | Path | None = None, process_group=None, eager_decode: bool = False,
+                 graph_cache_bytes: int | None = None):
         self.device = resolve_device(device)
         self.group = process_group
         self._rank, self._world = world_of(process_group)
@@ -190,7 +203,9 @@ class Predictor:
         self.preprocessor = Preprocessor(self.config.preprocess, self.config.runtime)
         pre = self.config.preprocess
         self._chunk_geom = (pre.chunk_width, pre.chunk_stride)
-        self.decode_steps = 0  # host-loop decode steps run since construction (all batches)
+        self.eager_decode = eager_decode
+        self.graph_cache = GraphCache(graph_cache_bytes)
+        self.decode_steps = 0  # decode steps run since construction (all batches; graph replays or the Python loop)
         self.mega_batches = 0  # beam batches decoded by the whole-decode path (one K3 launch each)
         self.head_batches = 0  # beam batches whose decode head ran inside K2's last launch
 
@@ -233,7 +248,8 @@ class Predictor:
         lines, counts, b = self._to_device_batch(batch)
         stats: dict = {}
         with matmul_precision(self.config.runtime.matmul_precision):
-            tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats)
+            tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats,
+                                 eager=self.eager_decode, graph_cache=self.graph_cache)
         if self._world > 1:
             tokens = gather_rows(tokens, self.group)
         self.decode_steps += stats["steps"]
@@ -262,15 +278,18 @@ class Predictor:
         return self.predict_batch([image_input], beam_width=beam_width, max_len=max_len)[0]
 
     def warmup(self, beam_widths=(1, 3), batch_size: int | None = None,
-               chunk_buckets: tuple[int, ...] | None = None) -> None:
+               chunk_buckets: tuple[int, ...] | None = None, max_len: int | None = None) -> None:
         """Run the serving shapes once before the first request: ``batch_size``
         white lines (default: the largest batch bucket) of each chunk bucket
         (default: the first four, lines up to about 8 chunks) through
-        ``predict_batch`` at each beam width. On the card this builds the
-        kernels on a cold ``_build/`` and loads them, and lets cuDNN pick
-        its algorithms for those shapes. One pass is enough: the port
-        compiles no per-shape programs and forms no batch groups, where the
-        JAX package runs each workload twice so its group programs compile."""
+        ``predict_batch`` at each beam width and ``max_len`` (default: the
+        cap). On the card this builds the kernels on a cold ``_build/`` and
+        loads them, lets cuDNN pick its algorithms for those shapes, and
+        captures the decode's CUDA graphs of each shape, every cache window
+        included (decode/graphs.py), as the JAX package's warmup compiles
+        its programs. One pass is enough: the port forms no batch groups,
+        where the JAX package runs each workload twice so its group
+        programs compile."""
         rt = self.config.runtime
         bsz = batch_size or max(rt.batch_buckets)
         buckets = chunk_buckets or rt.chunk_buckets[:4]
@@ -280,4 +299,4 @@ class Predictor:
         for nb in buckets:
             imgs += [np.full((h, (nb - 1) * stride + cw), 255, np.uint8)] * bsz
         for bw in beam_widths:
-            self.predict_batch(imgs, beam_width=bw, batch_size=bsz)
+            self.predict_batch(imgs, beam_width=bw, batch_size=bsz, max_len=max_len)

@@ -192,9 +192,20 @@ def _attend_beam(p_o: dict, num_heads: int, q, self_k, self_v, parent_idx, valid
     return _attend_merged(p_o, num_heads, q, k_read, v_read, valid_mask)
 
 
-def decoder_layer_step(p: dict, num_heads: int, x, pos: int, self_k, self_v, mem_k, mem_v, mem_valid,
+def write_slot(cache: torch.Tensor, pos, rows: torch.Tensor) -> None:
+    """cache[:, pos] = rows (in the cache's dtype), IN PLACE. ``pos``: a
+    Python int, or a one-element integer tensor read on its device (no host
+    read, so the write can be captured in a CUDA graph)."""
+    if isinstance(pos, torch.Tensor):
+        cache.index_copy_(1, pos.reshape(1).long(), rows.unsqueeze(1).to(cache.dtype))
+    else:
+        cache[:, pos] = rows
+
+
+def decoder_layer_step(p: dict, num_heads: int, x, pos, self_k, self_v, mem_k, mem_v, mem_valid,
                        window: int | None = None, lineage_idx=None):
-    """One decoder layer at position ``pos`` for a batch of lanes.
+    """One decoder layer at position ``pos`` (an int or a one-element
+    integer tensor: ``write_slot``) for a batch of lanes.
 
     ``p``: a layer of ``pack_step_params`` (packed self-QKV).
     x: (B, D). self_k/self_v: (B, L, D) caches, written IN PLACE at slot
@@ -206,8 +217,8 @@ def decoder_layer_step(p: dict, num_heads: int, x, pos: int, self_k, self_v, mem
     b, d = x.shape
     qkv = dense(p["self_qkv"], x)
     q_t, k_t, v_t = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
-    self_k[:, pos] = k_t
-    self_v[:, pos] = v_t
+    write_slot(self_k, pos, k_t)
+    write_slot(self_v, pos, v_t)
     w = self_k.shape[1] if window is None else min(window, self_k.shape[1])
     attendable = (torch.arange(w, device=x.device)[None, :] <= pos).expand(b, w)
     k_read, v_read = self_k[:, :w], self_v[:, :w]

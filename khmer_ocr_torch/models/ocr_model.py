@@ -49,9 +49,10 @@ from .bilstm import bilstm_apply
 from .layers import decoder_layer, dense, encoder_layer, pack_step_params
 
 CHUNK_TOKENS = 32  # patch tokens per 48x100 chunk
-# The decode loops run on the host, and an early-exit test needs a device
-# sync, so it is made every EXIT_CHECK_EVERY steps. The exits are provably
-# safe, so the tokens do not depend on this value.
+# The decode loops run their steps in chunks of EXIT_CHECK_EVERY (on the
+# card each chunk is one replay of a captured CUDA graph, decode/graphs.py)
+# and test the early exit, which needs a device sync, between chunks. The
+# exits are provably safe, so the tokens do not depend on this value.
 EXIT_CHECK_EVERY = 4
 
 
@@ -179,25 +180,27 @@ def pack_decode_params(params: dict) -> dict:
     return {**params, "dec": dec}
 
 
-def decode_hidden(params: dict, state: dict, tokens: torch.Tensor, pos: int, cfg: ModelConfig,
+def decode_hidden(params: dict, state: dict, tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
                   window: int | None = None, lineage_local=None, layer_step=None, head=None, model_group=None):
     """The decoder layers of one step for all lanes: tokens (B,) at position
-    ``pos`` -> the last layer's output (B, D), and with ``head``
+    ``pos`` (a 0-d int32 tensor on the tokens' device, read there, as the
+    JAX package's traced ``pos``) -> the last layer's output (B, D), and with ``head``
     (ops/kernels/decode_step.py::head_weights) also its log-probs (B, Vp)
     from the last layer's launch. The self caches in ``state`` are updated
     in place. ``lineage_local`` (B, window) int32: image-local beam parents
     (beam only). ``params`` come from ``pack_decode_params``. ``layer_step``
     replaces the layer (default: the kernel K2 wrapper). Under a model group
     of more than one rank each layer is ``tp_decode_layers``' three blocks
-    (no head)."""
+    (no head), which take ``pos`` by value: that path reads it on the host
+    (its all-reduces wait on the host anyway)."""
     dec = params["dec"]
     layer_step = layer_step or decoder_layer_step
-    x = embed(dec["tok_emb"], tokens, model_group) + dec["pos_emb"][pos]
+    x = embed(dec["tok_emb"], tokens, model_group) + dec["pos_emb"].index_select(0, pos.reshape(1))
     sk0, _ = state["self_kv"][0]
     lanes = sk0.shape[0] // state["mem_kv"][0][0].shape[0]
     w = window if window is not None else sk0.shape[1]
     if tp_active(model_group):
-        return tp_decode_layers(dec["layers_kernel"], state, x, pos, cfg, w, lineage_local, lanes, model_group)
+        return tp_decode_layers(dec["layers_kernel"], state, x, int(pos), cfg, w, lineage_local, lanes, model_group)
     last = len(dec["layers_kernel"]) - 1
     for li, (lw, (sk, sv), (mk, mv)) in enumerate(zip(dec["layers_kernel"], state["self_kv"], state["mem_kv"])):
         extra = {"head": head} if head is not None and li == last else {}
@@ -206,7 +209,7 @@ def decode_hidden(params: dict, state: dict, tokens: torch.Tensor, pos: int, cfg
     return x
 
 
-def decode_step(params: dict, state: dict, tokens: torch.Tensor, pos: int, cfg: ModelConfig,
+def decode_step(params: dict, state: dict, tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
                 window: int | None = None, lineage_local=None, layer_step=None, model_group=None) -> torch.Tensor:
     """One decode step for all lanes: tokens (B,) at position ``pos`` ->
     logits (B, V) (``decode_hidden``, then the vocabulary projection)."""

@@ -74,12 +74,14 @@ def fused_beam_decode_plain(params: dict, memory, memory_pad_mask, model_cfg: Mo
     cache_len = state["self_kv"][0][0].shape[1]
     st = beam_state(b, k, cache_len, dec_cfg, memory.device)
     out = packed["dec"]["out"]
-    for pos in range(max_len):
-        x = decode_hidden(packed, state, st["tokens"][:, :, pos].reshape(b * k), pos, model_cfg,
+    pos = st["pos"]
+    for _ in range(max_len):
+        x = decode_hidden(packed, state, st["tokens"].index_select(2, pos.reshape(1)).reshape(b * k), pos, model_cfg,
                           window=cache_len, lineage_local=st["lineage"].reshape(b * k, cache_len),
                           layer_step=decoder_layer_step_plain)
         logits = _dot(x.float(), out["w"]) + out["b"].float()
         beam_advance(st, torch.log_softmax(logits, dim=-1).reshape(b, k, -1), pos, dec_cfg)
+        pos.add_(1)
     tokens = beam_answer(st)
     if return_scores:
         return tokens, torch.cat([st["scores"], st["best_done_score"][:, None]], dim=1)

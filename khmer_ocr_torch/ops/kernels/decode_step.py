@@ -5,7 +5,12 @@
 ``decoder_layer_step(weights, x, pos, self_k, self_v, mem_k, mem_v,
 mem_valid_f, lineage, num_heads=, window=, lanes=, head=)`` returns the layer
 output (B, D) and writes this position's k and v IN PLACE into
-``self_k``/``self_v`` at slot ``pos``; no other cache slot changes.
+``self_k``/``self_v`` at slot ``pos``; no other cache slot changes. ``pos``
+is a one-element int32 tensor on the card, which the kernel reads there
+(the TPU kernel's scalar-prefetch ``pos_ref``), so one launch captured in a
+CUDA graph serves every position its replays reach (decode/graphs.py); the
+caller keeps ``0 <= pos < window``, which the kernel cannot check. The
+plain version takes that tensor or a Python int.
 ``weights`` is the dict of ``layer_weights``. ``lineage`` (B, window) int32
 holds image-local beam parents (None for greedy); slot ``pos`` reads the lane
 itself whatever the table says. Any number of lanes: the kernel runs one
@@ -45,7 +50,7 @@ import math
 
 import torch
 
-from ...models.layers import NEG_INF, layer_norm
+from ...models.layers import NEG_INF, layer_norm, write_slot
 from ...models.layers import decoder_layer_step as _layer_step_plain
 from . import build
 from .geometry import MAX_CLUSTER, SMEM_LIMIT, k2_geometry, k2_two_ctas_an_sm
@@ -61,7 +66,8 @@ BLOCK_KINDS = {"finish": 0, "self": 1, "cross": 2, "ffn": 3}
 HEAD_COLS = 128  # the head's vocabulary padded to a multiple of this, as the TPU kernel pads it
 
 # kernel launches since the last reset_launches(): every K2 launch, then those in bfloat16 and those with the
-# head among them, and the tensor-parallel blocks' launches
+# head among them, and the tensor-parallel blocks' launches. A K2 launch inside a CUDA graph's capture launches
+# nothing; the graph's replays launch it (decode/graphs.py moves its count from the capture to each replay).
 launches = 0
 bf16_launches = 0
 head_launches = 0
@@ -71,6 +77,17 @@ block_launches = 0
 def reset_launches() -> None:
     global launches, bf16_launches, head_launches, block_launches
     launches = bf16_launches = head_launches = block_launches = 0
+
+
+def k2_counts() -> tuple[int, int, int]:
+    """(launches, bf16_launches, head_launches) of K2."""
+    return launches, bf16_launches, head_launches
+
+
+def add_k2_counts(delta) -> None:
+    """Add ``delta`` (as ``k2_counts``) to K2's counts."""
+    global launches, bf16_launches, head_launches
+    launches, bf16_launches, head_launches = (a + d for a, d in zip(k2_counts(), delta))
 
 
 def layer_weights(lp: dict) -> dict:
@@ -214,7 +231,8 @@ def decoder_layer_step_plain(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_
     """The plain decode step (models/layers.py::decoder_layer_step in
     float32, ``_layer_step_lowp`` in bfloat16) with the lineage turned into
     absolute rows, slot ``pos`` patched to self; with ``head`` also its
-    log-probs."""
+    log-probs. ``pos``: a Python int or a one-element integer tensor, used
+    on the device (no host read)."""
     if x.dtype != torch.float32:
         out = _layer_step_lowp(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage, num_heads,
                                window, lanes)
@@ -241,17 +259,18 @@ def decoder_layer_step(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_
 
 
 def _check_operands(name: str, tensors: dict, device, storage: set, cdt) -> None:
-    """Every operand a contiguous, 16-byte aligned CUDA tensor on ``device``:
-    the ``storage`` keys of dtype ``cdt``, "lineage" int32, the rest float32."""
+    """Every operand a CUDA tensor on ``device``, contiguous and 16-byte
+    aligned but for "pos": the ``storage`` keys of dtype ``cdt``, "lineage"
+    and "pos" int32, the rest float32."""
     for key, t in tensors.items():
         if t is None:
             continue
         if not t.is_cuda or t.device != device:
             raise RuntimeError(f"{name}: {key} must be a CUDA tensor on {device}, got {t.device}")
-        want = torch.int32 if key == "lineage" else cdt if key in storage else torch.float32
+        want = torch.int32 if key in ("lineage", "pos") else cdt if key in storage else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if key != "pos" and (not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name}: {key} must be contiguous and 16-byte aligned")
 
 
@@ -275,9 +294,13 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     w = min(window, cache_len)
     head_w, head_b, v_real = head if head is not None else (None, None, 0)
     tensors = {"x": x, "self_k": self_k, "self_v": self_v, "mem_k": mem_k, "mem_v": mem_v,
-               "mem_valid_f": mem_valid_f, "lineage": lineage, "head_w": head_w, "head_b": head_b, **weights}
+               "mem_valid_f": mem_valid_f, "lineage": lineage, "head_w": head_w, "head_b": head_b,
+               "pos": pos if isinstance(pos, torch.Tensor) else None, **weights}
     _check_operands(name, tensors, x.device, {"x", "self_k", "self_v", "mem_k", "mem_v", "head_w", *MATRIX_FIELDS},
                     cdt)
+    if not isinstance(pos, torch.Tensor) or pos.numel() != 1:
+        raise TypeError(f"{name}: pos must be a one-element int32 tensor on the card (the kernel reads it there), "
+                        f"got {type(pos).__name__}")
     expect = {
         "self_k": (b, cache_len, d), "self_v": (b, cache_len, d), "mem_k": (n_img, tm, d),
         "mem_v": (n_img, tm, d), "mem_valid_f": (n_img, tm),
@@ -309,8 +332,6 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     if head is not None and not (head_columns_fit(vp, d, num_heads, split, cdt.itemsize) and 1 <= v_real <= vp):
         raise ValueError(f"{name}: the head's {vp} columns must be a multiple of {vw * num_heads * split} and at "
                          f"most D={d}, with 1 <= v_real={v_real} <= {vp}")
-    if not 0 <= pos < w:
-        raise ValueError(f"{name}: pos {pos} outside the window {w}")
     lib = build.load(build.library_name(name, cdt, two_ctas=ctas_an_sm == 2))
     smem = lib.decoder_layer_step_smem_bytes(group, d, num_heads, f, split, vw)
     if smem > SMEM_LIMIT:
@@ -321,11 +342,11 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
             head_w, head_b, logp]
     arr = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     fn = lib.decoder_layer_step_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(ctypes.cast(arr, ctypes.c_void_p), n_img, lanes, group, d, num_heads, f, cache_len, tm, pos, w, split,
-             int(cdt == torch.bfloat16), vp, v_real, stream)
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), pos.data_ptr(), n_img, lanes, group, d, num_heads, f, cache_len, tm, w,
+             split, int(cdt == torch.bfloat16), vp, v_real, stream)
     build.check(err, name)
     launches += 1
     bf16_launches += int(cdt == torch.bfloat16)
@@ -353,8 +374,8 @@ def decoder_block_plain(kind, weights, x, part=None, pos=0, self_k=None, self_v=
     if kind == "self":
         da = weights["qkv_w"].shape[1] // 3
         qkv = _round(_dot(xf, weights["qkv_w"]) + weights["qkv_b"], dtype)
-        self_k[:, pos] = qkv[:, da:2 * da].to(self_k.dtype)
-        self_v[:, pos] = qkv[:, 2 * da:].to(self_v.dtype)
+        write_slot(self_k, pos, qkv[:, da:2 * da])
+        write_slot(self_v, pos, qkv[:, 2 * da:])
         k_read, v_read, valid = _self_rows(self_k, self_v, xf, pos, lineage, window, lanes)
         o = _attend(qkv[:, None, :da], k_read, v_read, valid, num_heads, dtype)[:, 0]
         return xf, _dot(o, weights["so_w"])
