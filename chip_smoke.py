@@ -73,6 +73,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and memory, all of it freed with the Predictor; a budget that keeps
      one shape, so every batch captures again, against the cache and the
      Python loop);
+  8c. predict_batch's in-flight pipeline (infer/predictor.py: a dispatch
+     thread prepares, ships and encodes each batch on its own stream, the
+     encode of shapes up to encode_graph.MAX_CHUNKS chunks replayed as a
+     CUDA graph; the caller decodes in order and drains) against the loop
+     of decode_prepared, the path before it, on the trained flagship at
+     beam 3, max_len 64: the 18 seeded lines and the 64 real lines at
+     batch 8, those four times over at batch 8 and 64; the loop, the
+     pipeline with the encode launched eagerly and the pipeline at
+     max_inflight_batches 1 and 4, in turns, counted: tokens equal, JAX's
+     strings and CER, the high-water mark within 2 x max_inflight_batches
+     and reaching it at 1; walls, lines/s, idle shares, the decode
+     stage's host ms, peak memory; the encode graphs' memory against the
+     eager encode's; the exit test's read waiting on its own stream alone;
   9. the page path (document): 4 A4 pages of the 64 rendered lines
      (data/pages.py) written as PNG, the seeded SegFormer written as an HF
      checkpoint directory, loaded by KhmerOCRPipeline(engine="custom") with
@@ -2060,6 +2073,261 @@ def graph_cache_cost(torch, smi, params, stats, lines, bs):
     return out
 
 
+INFLIGHT_REPEATS = 3  # timed requests of each path, in turns
+# the paths: the sequential loop of decode_prepared (the path before the pipeline), the pipeline with the encode
+# launched eagerly at max_inflight_batches 4, and the pipeline (encode graphs) at 1 and at 4: (eager encode, bound)
+INFLIGHT_PATHS = {"loop": None, "eager encode, 4": (True, 4), "1": (False, 1), "4": (False, 4)}
+INFLIGHT_BOUND = "256 real lines, batch 8"  # the request whose pipeline at max_inflight_batches 1 must reach the bound
+
+
+def sequential_run(torch, pred, lines, bw, bs, max_len):
+    """The request by the path before the pipeline: each bucket batch's
+    ``decode_prepared`` (prepared, shipped, encoded, decoded, read back)
+    before the next is dispatched -> (token rows, counts, seconds), counted
+    as counted_run counts."""
+    from khmer_ocr_torch.decode import graphs
+    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, smem_probe
+
+    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe}
+    torch.cuda.synchronize()
+    for mod in kernels.values():
+        mod.reset_launches()
+    graphs.reset_counts()
+    steps0, mega0 = pred.decode_steps, pred.mega_batches
+    t0 = time.perf_counter()
+    rows = [None] * len(lines)
+    for batch in pred.preprocessor.iter_batches(lines, max_batch=bs):
+        for i, r in zip(batch.indices, pred.decode_prepared(batch, bw, max_len)):
+            rows[i] = r
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: mod.launches for k, mod in kernels.items()}
+    counts.update(steps=pred.decode_steps - steps0, mega=pred.mega_batches - mega0, captures=graphs.captures,
+                  replays=graphs.replays, replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
+    return rows, counts, wall
+
+
+def exit_test_waits_on_its_stream(torch) -> dict:
+    """The exit test's host read (``bool`` of a device tensor, as
+    beam_finished and greedy_finished read it) with about 50 ms of work
+    queued on another stream, as an encode of the dispatch stage would be:
+    it must return before that work ends, so it waited on its own stream
+    alone."""
+    side = torch.cuda.Stream()
+    flag = torch.zeros(4, device="cuda")
+    bool((flag > 0).any())  # its kernels loaded: a lazily loaded module's first launch waits on the whole card
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 100_000_000
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1000)  # loaded
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+    t0 = time.perf_counter()
+    done = bool((flag > 0).any())
+    read_ms = (time.perf_counter() - t0) * 1e3
+    side_busy = not side.query()
+    end.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    print(f"[inflight] the exit test's read with {sleep_ms:.1f} ms queued on another stream: {read_ms:.3f} ms, the "
+          f"other stream still busy after it: {side_busy}")
+    if done or not side_busy or not read_ms < sleep_ms / 2:
+        fail(f"inflight: the exit test's read took {read_ms:.3f} ms beside {sleep_ms:.1f} ms on another stream "
+             f"(still busy: {side_busy}): it waits on more than its stream")
+    return dict(read_ms=read_ms, other_stream_ms=sleep_ms)
+
+
+def encode_graph_agrees(torch, pred, lines, bs) -> float:
+    """Each bucket batch's memory and pad mask by its encode graph (the
+    dispatch stage's path, infer/encode_graph.py) against the eager encode
+    on the same inputs: the worst difference over valid positions."""
+    import khmer_ocr_torch.infer.predictor as predictor
+    from khmer_ocr_torch.infer import encode_graph
+
+    worst, shapes = 0.0, []
+    with torch.inference_mode():
+        for batch in pred.preprocessor.iter_batches(lines, max_batch=bs):
+            u8, cnt, _ = pred._to_device_batch(batch)
+            known = len(pred.encode_cache)
+            torch.cuda.synchronize()
+            reserved = torch.cuda.memory_reserved()
+            encode = lambda l, c: predictor.encode_batch(pred.params, l, c, pred.model_cfg, pred._chunk_geom)  # noqa
+            ref, ref_pad = encode(u8, cnt)
+            side = pred._encode_stream  # the dispatch stage's stream: a capture cannot run on the default one
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):  # the shape's first batch runs eagerly (and captures), the next replays
+                    mem, pad = encode_graph.encode_graphed(pred.encode_cache, pred.params, encode, u8, cnt)
+            torch.cuda.current_stream().wait_stream(side)
+            if len(pred.encode_cache) > known:  # a capture: its pool against what the card reserved meanwhile
+                torch.cuda.synchronize()
+                g = next(reversed(pred.encode_cache.shapes.values()))
+                shapes.append(dict(rows=u8.shape[0], chunks=batch.bucket_n, nbytes=g.nbytes,
+                                   reserved=torch.cuda.memory_reserved() - reserved))
+                if g.nbytes <= g.lines.nbytes:
+                    fail(f"inflight: the encode graph of {tuple(u8.shape)} counts no pool ({g.nbytes} B)")
+            if not torch.equal(pad, ref_pad):
+                fail(f"inflight: the encode graph's pad mask differs from the eager one (bucket {batch.bucket_n})")
+            worst = max(worst, (mem - ref)[~pad].abs().max().item())
+    print(f"[inflight] encode graphs against the eager encode, each bucket batch of the 64 real lines at batch {bs}: "
+          f"max |diff| {worst:.2e}; each new shape's bytes (its inputs and pool) against what the card reserved "
+          "meanwhile, MiB: " + ", ".join(f"{s['rows']}x{s['chunks']} {s['nbytes'] / MIB:.1f} / {s['reserved'] / MIB:.1f}"
+                                         for s in shapes))
+    if not worst <= TOL:
+        fail(f"inflight: the encode graphs' memory differs from the eager encode's by {worst:.3e} > {TOL}")
+    return dict(err=worst, shapes=shapes)
+
+
+def phase_inflight(torch, smi):
+    """``predict_batch``'s in-flight pipeline against the sequential loop of
+    ``decode_prepared`` (the path before it), on the trained flagship
+    (khmer_ocr_torch/assets/flagship), float32, beam 3, max_len 64, one
+    Predictor, every shape warmed first: the 18 seeded lines at batch 8,
+    the 64 real lines at batch 8, and those lines four times over (256) at
+    batch 8 and 64. The paths of INFLIGHT_PATHS, INFLIGHT_REPEATS requests
+    each in turns, each counted (K1 a batch, K2 layers x steps, no
+    capture of the decode's or the encode's, on the graph paths an encode
+    replay for each batch of at most encode_graph.MAX_CHUNKS chunks): the
+    wall, lines/s, the peak allocated bytes, the host ms inside the decode
+    half (the decode stage's work), the high-water mark of batches in
+    flight, and, from one profiled request of each (where its trace is
+    small enough), the idle share. Fails unless
+    every request's tokens equal the loop's, the real lines read the JAX
+    package's strings (mean CER equal to JAX's), the mark stays within
+    2 x max_inflight_batches and reaches 2 in the 256 lines at batch 8 with
+    max_inflight_batches 1. Also: the exit test's read waits on its stream
+    alone (exit_test_waits_on_its_stream), and the encode graphs' memory
+    equals the eager encode's within TOL (encode_graph_agrees)."""
+    import dataclasses
+
+    import khmer_ocr_torch.infer.predictor as predictor
+    from khmer_ocr_torch.data.synthetic import synthetic_lines
+    from khmer_ocr_torch.infer import encode_graph
+    from khmer_ocr_torch.metrics import score
+    from khmer_ocr_torch.profiling import busy_ms, device_events
+
+    out = {"smi": smi, "exit_test": exit_test_waits_on_its_stream(torch), "rows": {}}
+    golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "smoke_golden.json").read_text())
+    meta = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "real_lines.json").read_text())
+    real = [line for line, _ in real_samples(len(meta["texts"]))]
+    bw, max_len = meta["recipe"]["beam_width"], meta["recipe"]["max_len"]
+    pred = predictor.Predictor(model_path=FLAGSHIP)
+    out["encode_graph"] = encode_graph_agrees(torch, pred, real, 8)
+    layers = pred.model_cfg.dec_layers
+    decode_s = [0.0]  # host seconds inside the decode half, the decode stage's work
+    real_decode = predictor.decode_batch
+
+    def timed_decode(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_decode(*a, **kw)
+        finally:
+            decode_s[0] += time.perf_counter() - t0
+
+    max_chunks = encode_graph.MAX_CHUNKS
+
+    def run(path, lines, bs):
+        encode_graph.reset_counts()
+        if INFLIGHT_PATHS[path] is None:
+            return sequential_run(torch, pred, lines, bw, bs, max_len)
+        eager, bound = INFLIGHT_PATHS[path]
+        encode_graph.MAX_CHUNKS = 0 if eager else max_chunks  # 0: no shape is captured, every encode runs eagerly
+        pred.config = pred.config.replace(runtime=dataclasses.replace(pred.config.runtime, max_inflight_batches=bound))
+        try:
+            return counted_run(torch, pred, lines, bw, bs, max_len)
+        finally:
+            encode_graph.MAX_CHUNKS = max_chunks
+
+    # (label, lines, batch size, JAX's strings, profiled): the 256 lines at batch 8 are not profiled, since their
+    # trace would hold about 4x the 64 lines' device events and take longer than the rest of the phase
+    requests = (("18 seeded lines, batch 8", synthetic_lines(golden["chunk_counts"], seed=golden["lines_seed"]), 8,
+                 None, True),
+                ("64 real lines, batch 8", real, 8, meta["strings"], True),
+                (INFLIGHT_BOUND, real * 4, 8, meta["strings"] * 4, False),
+                ("256 real lines, batch 64", real * 4, 64, meta["strings"] * 4, True))
+    predictor.decode_batch = timed_decode
+    try:
+        for label, lines, bs, want, profiled in requests:
+            batches = list(pred.preprocessor.iter_batches(lines, max_batch=bs))
+            n_batches = len(batches)
+            # the batches whose encode the dispatch stage replays as a graph: at most MAX_CHUNKS chunks, padded
+            n_graphed = sum(1 for b in batches if predictor._round_up(len(b.indices), pred.config.runtime.batch_buckets)
+                            * b.bucket_n <= encode_graph.MAX_CHUNKS)
+            for path in INFLIGHT_PATHS:
+                run(path, lines, bs)  # warm-up: every shape's graphs captured
+            res = {p: dict(walls_ms=[], peak_mib=[], high=[], decode_ms=[]) for p in INFLIGHT_PATHS}
+            ref = None
+            for _ in range(INFLIGHT_REPEATS):
+                for path, how in INFLIGHT_PATHS.items():
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    decode_s[0] = 0.0
+                    rows, c, wall = run(path, lines, bs)
+                    r = res[path]
+                    r["walls_ms"].append(wall * 1e3)
+                    r["peak_mib"].append((torch.cuda.max_memory_allocated() - base) / MIB)
+                    r["decode_ms"].append(decode_s[0] * 1e3)
+                    graphed = how is not None and not how[0]
+                    c.update(encode_captures=encode_graph.captures, encode_replays=encode_graph.replays)
+                    want_c = dict(k1=n_batches, k2=layers * c["steps"], k3=0, k4=0, captures=0, eager_steps=0,
+                                  replayed_steps=c["steps"], encode_captures=0,
+                                  encode_replays=n_graphed if graphed else 0)
+                    if any(c[k] != v for k, v in want_c.items()):
+                        fail(f"inflight {label}, {path}: counts {c}, expected {want_c}")
+                    if how is not None:
+                        r["high"].append(pred.max_batches_in_flight)
+                        if not 1 <= pred.max_batches_in_flight <= 2 * how[1]:
+                            fail(f"inflight {label}: {pred.max_batches_in_flight} batches in flight at "
+                                 f"max_inflight_batches {how[1]}")
+                    rows = [strip(x) for x in rows]
+                    ref = rows if ref is None else ref
+                    if rows != ref:
+                        differ = [i for i, (a, b) in enumerate(zip(ref, rows)) if a != b]
+                        fail(f"inflight {label}, {path}: tokens differ from the loop's on lines {differ}")
+                    r["counts"] = c
+            for path in INFLIGHT_PATHS:
+                r = res[path]
+                mean = sum(r["walls_ms"]) / len(r["walls_ms"])
+                r.update(ms=mean, lines_per_s=len(lines) / mean * 1e3, busy_ms=None, idle=None)
+                if profiled:
+                    dev, _ = device_events(lambda: run(path, lines, bs))
+                    r.update(busy_ms=busy_ms(dev), events=len(dev))
+                    r["idle"] = 1.0 - r["busy_ms"] / mean
+            if label == INFLIGHT_BOUND and max(res["1"]["high"]) != 2:
+                fail(f"inflight {label}: the high-water mark at max_inflight_batches 1 is {res['1']['high']}, not 2")
+            if want is not None:
+                strings = [pred.tokenizer.decode(r) for r in ref]
+                equal = sum(a == b for a, b in zip(strings, want))
+                # the CER of the 64 lines (each copy reads the same strings once all are equal)
+                cer = score([f"line_{i}" for i in range(len(real))], meta["texts"], strings[:len(real)]).mean_cer
+                print(f"[inflight] {label}: {equal}/{len(lines)} strings equal to the JAX package's, mean CER "
+                      f"{cer:.6f} (JAX {meta['mean_cer']:.6f})")
+                if equal != len(lines) or cer != meta["mean_cer"]:
+                    fail(f"inflight {label}: {equal}/{len(lines)} of JAX's strings, CER {cer} against "
+                         f"{meta['mean_cer']}")
+                res["jax_strings"], res["mean_cer"] = equal, cer
+            for path in INFLIGHT_PATHS:
+                r = res[path]
+                name = path if path == "loop" else f"inflight {path}"
+                idle = ("idle not measured (its trace holds about 4x the 64 lines' events)" if r["idle"] is None
+                        else f"{r['idle']:.1%} idle (busy {r['busy_ms']:.1f} ms, {r['events']} events)")
+                print(f"[inflight] {label}, {name}: {fmt_gaps(r['walls_ms'])} ms, {r['lines_per_s']:.1f} lines/s, "
+                      f"{idle}; decode half {fmt_gaps(r['decode_ms'])} ms on the host; peak "
+                      f"{max(r['peak_mib']):.1f} MiB above the Predictor; in flight {r['high'] or '-'}; "
+                      f"{n_batches} batches on {smi}")
+            print(f"[inflight] {label}: tokens of every request equal to the loop's; the loop's wall over each "
+                  f"path's: " + ", ".join(f"{p} {res['loop']['ms'] / res[p]['ms']:.2f}x" for p in INFLIGHT_PATHS
+                                          if p != "loop"))
+            out["rows"][label] = res
+    finally:
+        predictor.decode_batch = real_decode
+        pred.config = pred.config.replace(runtime=dataclasses.replace(pred.config.runtime, max_inflight_batches=4))
+    out["encode_shapes"] = dict(n=len(pred.encode_cache), bytes=pred.encode_cache.nbytes)
+    print(f"[inflight] the Predictor's encode graphs: {len(pred.encode_cache)} shapes of at most "
+          f"{encode_graph.MAX_CHUNKS} chunks, {pred.encode_cache.nbytes / MIB:.1f} MiB (their inputs and pools)")
+    return out
+
+
 def phase_document(torch, smi):
     """The page path: the SegFormer layout model (seeded weights, written as
     an HF checkpoint directory), its post-process on the host, and the
@@ -3318,6 +3586,9 @@ def main() -> int:
     decode_graph = phase_decode_graph(torch, smi)
     print(f"[decode_graph] {json.dumps(decode_graph)}; the phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    inflight = phase_inflight(torch, smi)
+    print(f"[inflight] {json.dumps(inflight)}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     document = phase_document(torch, smi)
     print(f"[document] {json.dumps(document)}; the phase took {time.perf_counter() - t0:.1f} s")
     tr = phase_train(torch, smi)
@@ -3354,6 +3625,7 @@ def main() -> int:
     k1b_main = next(r for r in k1b_rows if r["shape"] == "2x B=32 T=512")
     k2_main = next(r for r in k2_rows if r["shape"] == "8x3 w=64 Tm=256")
     k3_main = next(r for r in k3_rows if r["shape"] == "8x3 Tm=128 max_len=64")
+    inflight_main = inflight["rows"]["64 real lines, batch 8"]["4"]["counts"]  # the pipeline's request
 
     def entry(name, source, replaces, launches, err, main_row, rows, **extra):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -3366,7 +3638,8 @@ def main() -> int:
               e2e[main_len]["k1"], max(k1_err, k1_cell_err), k1_main, k1_rows + k1_cell_rows,
               train_launches=tr["k1_launches"], document_launches=document["pages"]["k1"],
               host_augment_train_launches=host_augment["k1"], parallel_train_launches=parallel["k1_train"],
-              parallel_serve_launches=parallel["k1_serve"]),
+              parallel_serve_launches=parallel["k1_serve"], inflight_launches=inflight_main["k1"],
+              encode_graph_replays=inflight_main["encode_replays"]),
         # launches: one train step's (the training path)
         entry("lstm_adjoint", "lstm_backward.cu", tpu_kernel_site("ops/pallas/lstm.py", "_vjp_bwd"),
               tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"],
@@ -3376,6 +3649,7 @@ def main() -> int:
         entry("decoder_layer_step", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e[main_len]["k2"],
               k2_err, k2_main, k2_rows, document_launches=document["pages"]["k2"],
+              inflight_launches=inflight_main["k2"],
               parallel_serve_launches=parallel["k2_serve"], graph_replays=e2e[main_len]["replays"],
               launches_a_replay=cfg.dec_layers * EXIT_CHECK_EVERY,
               traced_launches=decode_graph["rows"]["float32, beam 3, max_len 64"]["graph"]["traced_k2"],

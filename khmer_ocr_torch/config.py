@@ -107,7 +107,11 @@ class RuntimeConfig:
     loader, native/imageio.py); all-file workloads decode through the native
     loader's batch call into a reused slab ``slab_cap_w`` px wide (wider
     lines re-decode at full width); ``flush_deadline_ms`` > 0 flushes a
-    partly filled bucket whose oldest line has waited that long."""
+    partly filled bucket whose oldest line has waited that long.
+    In flight: ``predict_batch`` prepares, ships and encodes later bucket
+    batches on a thread and stream of their own while earlier ones decode;
+    at most 2 x ``max_inflight_batches`` batches (read as at least 1) are
+    dispatched and not yet drained (their tokens read back)."""
 
     compute_dtype: str = "float32"
     matmul_precision: str = "highest"
@@ -116,6 +120,7 @@ class RuntimeConfig:
     host_workers: int = 8
     slab_cap_w: int = 2048
     flush_deadline_ms: float = 0.0
+    max_inflight_batches: int = 4
 
 
 @dataclass(frozen=True)

@@ -32,6 +32,7 @@ falls back to the Python loop.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 
@@ -165,16 +166,22 @@ class StepGraphs:
     def set_pos(self, pos: int) -> None:
         self.st["pos"].fill_(pos)
 
-    def prepare(self, max_len: int, inputs: tuple, pool) -> None:
+    def prepare(self, max_len: int, inputs: tuple, pool, lock=None) -> None:
         """Capture the graph of every chunk shape of a decode of ``max_len``
-        steps not captured yet (into the memory pool ``pool``), then fill
-        the buffers with ``inputs``' initial state."""
-        global captures
+        steps not captured yet (into the memory pool ``pool``, holding
+        ``lock`` meanwhile), then fill the buffers with ``inputs``' initial
+        state."""
         todo = [c for c in step_chunks(max_len) if (c[0], c[2]) not in self.graphs]
         if todo:
-            self.fill(*inputs)  # valid tokens and lineage for the eager chunk
+            with lock or contextlib.nullcontext():
+                self._capture(todo, inputs, pool)
+        self.fill(*inputs)
+
+    def _capture(self, todo: list, inputs: tuple, pool) -> None:
+        global captures
+        self.fill(*inputs)  # valid tokens and lineage for the eager chunk
         side = _side_stream(self.device)
-        if todo and not self.graphs:  # one eager chunk first: kernels loaded, handles made, outside any capture
+        if not self.graphs:  # one eager chunk first: kernels loaded, handles made, outside any capture
             w, start, n = todo[0]
             self.set_pos(start)
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -194,7 +201,6 @@ class StepGraphs:
             decode_step.add_k2_counts(tuple(-d for d in delta))
             self.graphs[(w, n)] = (graph, delta)
             captures += 1
-        self.fill(*inputs)
 
     def replay(self, w: int, n: int) -> None:
         global replays, replayed_steps
@@ -211,14 +217,20 @@ class GraphCache:
     it. ``budget``: the bytes its shapes' buffers may hold, the least
     recently used shapes evicted beyond it (None: ``CACHE_SHARE`` of the
     card's memory); a shape larger than the budget is still kept, alone.
-    Its graphs share one memory pool: replays run one after another on one
-    stream and leave their results in their shape's buffers, so their
-    intermediates may share memory."""
+    The decode's graphs share its one memory pool (``pool()``): replays run
+    one after another on one stream and leave their results in their
+    shape's buffers, so their intermediates may share memory (the encode
+    graphs of infer/encode_graph.py, in a cache of their own, each take a
+    pool of their own). ``capture_lock`` is held around every
+    capture; a thread that launches work beside the decode (the Predictor's
+    dispatch stage) holds it around its launches, so that no other thread's
+    call lands inside a capture."""
 
     def __init__(self, budget: int | None = None):
         self.budget = budget
         self.shapes: OrderedDict = OrderedDict()
         self.lock = threading.Lock()
+        self.capture_lock = threading.Lock()
         self._params = self._packed = self._pool = None
 
     def __len__(self) -> int:
@@ -228,12 +240,18 @@ class GraphCache:
     def nbytes(self) -> int:
         return sum(s.nbytes for s in self.shapes.values())
 
+    def bind(self, params: dict) -> None:
+        """Other params than the last drop every shape made for those."""
+        if params is not self._params:
+            self.shapes.clear()
+            self._params, self._packed = params, None
+
     def packed(self, params: dict) -> dict:
         """``pack_decode_params(params)``, made once for the shapes to share;
         other params drop every shape made for the old ones."""
-        if params is not self._params:
-            self.shapes.clear()
-            self._params, self._packed = params, pack_decode_params(params)
+        self.bind(params)
+        if self._packed is None:
+            self._packed = pack_decode_params(params)
         return self._packed
 
     def get(self, key, make) -> StepGraphs:
@@ -272,6 +290,6 @@ def decode(cache: GraphCache | None, key, make, inputs: tuple, max_len: int, fin
         return answer(sg.st), steps
     with cache.lock, torch.inference_mode():
         sg = cache.get(key, make)
-        sg.prepare(max_len, inputs, cache.pool())
+        sg.prepare(max_len, inputs, cache.pool(), cache.capture_lock)
         steps = run_chunks(max_len, sg.cache_len, lambda: finished(sg.st), sg.replay)
         return answer(sg.st), steps

@@ -20,8 +20,28 @@ pads each bucket batch to a multiple of the world size, decodes its rows and
 gathers every rank's tokens, so each rank returns all the strings.
 
 ``infer_batch`` is the device part of one bucket batch, the counterpart of
-the JAX package's ``_infer_jit``; under a tensor-parallel ``model_group`` it
-runs on one rank's part of the params (parallel/mesh.py).
+the JAX package's ``_infer_jit``: ``encode_batch`` then ``decode_batch``;
+under a tensor-parallel ``model_group`` it runs on one rank's part of the
+params (parallel/mesh.py). ``decode_prepared`` runs it for one batch and
+reads the tokens back.
+
+``predict_batch`` keeps batches in flight, as the JAX package's does with
+its asynchronous dispatch. A dispatch thread consumes
+``Preprocessor.iter_batches``, pads each batch, ships it and launches its
+encode on a CUDA stream of its own, and queues it with an event. The
+caller's thread decodes the batches in order on its current stream, which
+first waits on that event (on the card, not the host), gathers the rows
+under a ``process_group``, and starts a copy of the tokens into pinned host
+memory. The drain reads a batch's rows back once its copy is done: the
+oldest, when the dispatch stage waits for a slot or the next batch is not
+ready. So preparation, transfer and encode of later batches overlap the
+decode of earlier ones. At most 2 x ``RuntimeConfig.max_inflight_batches``
+batches are dispatched and not yet drained (the dispatch stage waits for
+a slot); ``Predictor.max_batches_in_flight`` is the high-water mark of the
+last call. The JAX package dispatches groups of ``max_inflight_batches``
+batches; the port forms no groups and dispatches each batch once it is
+prepared. An exception in either stage is raised in the caller once the
+dispatch thread has ended.
 
 The serving speed mode: ``RuntimeConfig.compute_dtype="bfloat16"`` casts the
 params to bfloat16 (the BatchNorm statistics stay float32), so activations,
@@ -34,7 +54,11 @@ found them once it returns.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import queue
+import threading
+from collections import deque
 from pathlib import Path
 
 import numpy as np
@@ -48,9 +72,10 @@ from ..decode.greedy import greedy_decode
 from ..models.ocr_model import encode
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
 from ..parallel.mesh import data_shard, gather_rows, world_of
-from ..precision import check_precision, matmul_precision
+from ..precision import check_nesting, check_precision, matmul_precision
 from ..preprocess import PreparedBatch, Preprocessor
 from ..tokenizer import Tokenizer
+from . import encode_graph
 
 
 def resolve_device(device=None) -> torch.device:
@@ -92,10 +117,29 @@ def cast_params(params, dtype):
     return params.to(dtype) if params.is_floating_point() else params
 
 
+def encode_batch(params: dict, lines: torch.Tensor, counts: torch.Tensor, model_cfg: ModelConfig,
+                 chunk_geom: tuple[int, int], model_group=None):
+    """The encode half of ``infer_batch``: uint8 lines (B, H, Wb) and chunk
+    counts (B,) -> (memory (B, T, D), pad mask (B, T)), normalised, cut into
+    windows and encoded in the params' dtype."""
+    # the compute dtype follows the params (their patch projection's)
+    chunks = device_chunk(unit_normalize(u8_to_unit(lines)), chunk_geom).to(params["patch"]["proj"]["w"].dtype)
+    return encode(params, chunks, counts, model_cfg, model_group=model_group)
+
+
+def decode_batch(params: dict, memory, pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig, model_group=None,
+                 stats: dict | None = None, eager: bool = False, graph_cache=None):
+    """The decode half of ``infer_batch``: beam search when
+    ``dec_cfg.beam_width`` > 1, else greedy decoding -> tokens."""
+    decode = beam_decode if dec_cfg.beam_width > 1 else greedy_decode
+    return decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group, eager=eager,
+                  graph_cache=graph_cache)
+
+
 @torch.inference_mode()
 def infer_batch(params: dict, lines: torch.Tensor, counts: torch.Tensor, model_cfg: ModelConfig,
                 dec_cfg: DecodeConfig, chunk_geom: tuple[int, int], model_group=None, stats: dict | None = None,
-                eager: bool = False, graph_cache=None):
+                eager: bool = False, graph_cache=None, encoded: tuple | None = None):
     """One bucket batch on the params' device: uint8 lines (B, H, Wb) and
     chunk counts (B,) -> tokens (B, steps + 1 or + 2), normalised, cut into
     windows, encoded and decoded (beam when ``dec_cfg.beam_width`` > 1) in
@@ -103,14 +147,65 @@ def infer_batch(params: dict, lines: torch.Tensor, counts: torch.Tensor, model_c
     ``params`` this rank's part. ``stats`` receives the decode's counts.
     ``eager``: the decode's Python step loop on the card too, in place of
     its CUDA graphs (the graphs' oracle); ``graph_cache``: where the graphs
-    are kept (decode/graphs.py::GraphCache; None: for this call alone)."""
+    are kept (decode/graphs.py::GraphCache; None: for this call alone).
+    ``encoded``: these lines' (memory, pad mask) from ``encode_batch``,
+    where the caller encoded them already (``predict_batch``'s dispatch
+    stage); only the decode runs then."""
     stats = {} if stats is None else stats
-    # the compute dtype follows the params (their patch projection's)
-    chunks = device_chunk(unit_normalize(u8_to_unit(lines)), chunk_geom).to(params["patch"]["proj"]["w"].dtype)
-    memory, pad_mask = encode(params, chunks, counts, model_cfg, model_group=model_group)
-    decode = beam_decode if dec_cfg.beam_width > 1 else greedy_decode
-    return decode(params, memory, pad_mask, model_cfg, dec_cfg, stats=stats, model_group=model_group, eager=eager,
-                  graph_cache=graph_cache)
+    if encoded is None:
+        encoded = encode_batch(params, lines, counts, model_cfg, chunk_geom, model_group)
+    return decode_batch(params, *encoded, model_cfg, dec_cfg, model_group, stats, eager, graph_cache)
+
+
+_DISPATCH_STREAMS: dict = {}
+
+
+def dispatch_stream(device: torch.device):
+    """The dispatch stage's stream on ``device``, where transfers and
+    encodes run beside the decodes: one for the process, since torch keeps
+    the cuBLAS workspace it makes for a stream (32 MiB on an H100) until
+    the process ends."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _DISPATCH_STREAMS:
+        _DISPATCH_STREAMS[idx] = torch.cuda.Stream(idx)
+    return _DISPATCH_STREAMS[idx]
+
+
+_DONE = object()  # the dispatch stage's last item when it ran to the end
+POLL_S = 0.05  # how often the dispatch stage, waiting for a slot, looks whether the call has stopped
+
+
+class InFlight:
+    """The two stages' shared state in one ``predict_batch`` call: the queue
+    of dispatched batches, a slot for each of at most ``bound`` batches
+    dispatched and not yet drained, their count and its high-water mark,
+    and the stop event that ends the dispatch stage."""
+
+    def __init__(self, bound: int):
+        self.bound = bound
+        self.ready: queue.Queue = queue.Queue()  # never more than ``bound`` batches and the last item: slots bound it
+        self.stop = threading.Event()
+        self._slots = threading.Semaphore(bound)
+        self._lock = threading.Lock()
+        self.now = self.high = 0
+
+    def take_slot(self) -> bool:
+        """Wait for a slot; False once the call has stopped."""
+        while not self._slots.acquire(timeout=POLL_S):
+            if self.stop.is_set():
+                return False
+        with self._lock:
+            self.now += 1
+            self.high = max(self.high, self.now)
+        return not self.stop.is_set()
+
+    def release(self) -> None:
+        with self._lock:
+            self.now -= 1
+        self._slots.release()
+
+    def full(self) -> bool:
+        return self.now >= self.bound
 
 
 def load_weights(model_path: str | Path, vocab_size: int | None = None):
@@ -175,7 +270,10 @@ class Predictor:
     Predictor; ``graph_cache_bytes`` bounds the bytes of their buffers
     (None: ``graphs.CACHE_SHARE`` of the card's memory). ``eager_decode``:
     decode with the Python step loop on the card too, not its CUDA graphs
-    (the graphs' oracle; no serving path sets it)."""
+    (the graphs' oracle; no serving path sets it). ``predict_batch``'s
+    dispatch stage replays the encode of each shape of at most
+    ``encode_graph.MAX_CHUNKS`` chunks as a CUDA graph (infer/encode_graph.py),
+    kept in ``encode_cache``, a second cache of that budget."""
 
     def __init__(self, params=None, batch_stats=None, model_cfg: ModelConfig | None = None, device=None,
                  config: OCRConfig | None = None, vocab_path: str | Path | None = None,
@@ -205,9 +303,12 @@ class Predictor:
         self._chunk_geom = (pre.chunk_width, pre.chunk_stride)
         self.eager_decode = eager_decode
         self.graph_cache = GraphCache(graph_cache_bytes)
+        self.encode_cache = GraphCache(graph_cache_bytes)
         self.decode_steps = 0  # decode steps run since construction (all batches; graph replays or the Python loop)
         self.mega_batches = 0  # beam batches decoded by the whole-decode path (one K3 launch each)
         self.head_batches = 0  # beam batches whose decode head ran inside K2's last launch
+        self.max_batches_in_flight = 0  # in the last predict_batch call, the most batches dispatched and not drained
+        self._encode_stream = dispatch_stream(self.device) if self.device.type == "cuda" else None
 
     def _dec_cfg(self, beam_width: int, max_len: int | None) -> DecodeConfig:
         cap = self.model_cfg.decode_max_len
@@ -240,10 +341,15 @@ class Predictor:
             counts_t = counts_t.pin_memory().to(self.device, non_blocking=True)
         return lines_t, counts_t, b
 
+    def _add_stats(self, stats: dict) -> None:
+        self.decode_steps += stats["steps"]
+        self.mega_batches += stats.get("mega", 0)
+        self.head_batches += stats.get("head", 0)
+
     @torch.inference_mode()
     def decode_prepared(self, batch: PreparedBatch, beam_width: int, max_len: int | None = None) -> np.ndarray:
         """One bucket batch -> tokens (B, steps + 1 or + 2) on the host, under
-        the configured matmul precision."""
+        the configured matmul precision, nothing in flight."""
         dec_cfg = self._dec_cfg(beam_width, max_len)
         lines, counts, b = self._to_device_batch(batch)
         stats: dict = {}
@@ -252,19 +358,114 @@ class Predictor:
                                  eager=self.eager_decode, graph_cache=self.graph_cache)
         if self._world > 1:
             tokens = gather_rows(tokens, self.group)
-        self.decode_steps += stats["steps"]
-        self.mega_batches += stats.get("mega", 0)
-        self.head_batches += stats.get("head", 0)
+        self._add_stats(stats)
         return tokens[:b].cpu().numpy()
+
+    def _dispatch(self, batch: PreparedBatch) -> tuple:
+        """One batch through the dispatch stage, on the thread's current
+        stream: padded, shipped and encoded (on the card by its shape's CUDA
+        graph) -> (batch, true size, lines, counts, memory, pad mask, the
+        event after its encode or None on the CPU). The decode cache's
+        capture lock is held throughout, so that none of these launches
+        lands inside a capture of the decode's, nor one of the decode's in
+        an encode's capture."""
+        with matmul_precision(self.config.runtime.matmul_precision), self.graph_cache.capture_lock:
+            lines, counts, b = self._to_device_batch(batch)
+            encode = lambda l, c: encode_batch(self.params, l, c, self.model_cfg, self._chunk_geom)  # noqa: E731
+            if self._encode_stream is None or lines.shape[0] * batch.bucket_n > encode_graph.MAX_CHUNKS:
+                memory, pad = encode(lines, counts)
+            else:
+                memory, pad = encode_graph.encode_graphed(self.encode_cache, self.params, encode, lines, counts)
+        event = None
+        if self._encode_stream is not None:
+            event = torch.cuda.Event()
+            event.record(self._encode_stream)
+        return batch, b, lines, counts, memory, pad, event
+
+    def _dispatch_stage(self, image_list: list, batch_size: int, flight: InFlight) -> None:
+        """The dispatch thread: every bucket batch of ``image_list``
+        dispatched in turn, each once it has a slot; then ``_DONE``, or the
+        exception that ended it, for the caller to raise."""
+        last = _DONE
+        try:
+            on_stream = torch.cuda.stream(self._encode_stream) if self._encode_stream is not None \
+                else contextlib.nullcontext()
+            with contextlib.closing(self.preprocessor.iter_batches(image_list, max_batch=batch_size)) as batches, \
+                    torch.inference_mode(), on_stream:
+                for batch in batches:
+                    if not flight.take_slot():
+                        break
+                    flight.ready.put(self._dispatch(batch))
+        except BaseException as e:  # raised again in the caller
+            last = e
+        finally:
+            flight.ready.put(last)
+
+    def _decode_dispatched(self, item: tuple, dec_cfg: DecodeConfig) -> tuple:
+        """One dispatched batch decoded on the current stream, after its
+        encode's event, and the copy of its tokens to the host started ->
+        (batch, tokens, the event after the copy or None, the item, held
+        until the batch drains, since the decode reads its memory)."""
+        batch, b, lines, counts, memory, pad, event = item
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        stats: dict = {}
+        with matmul_precision(self.config.runtime.matmul_precision):
+            tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats,
+                                 eager=self.eager_decode, graph_cache=self.graph_cache, encoded=(memory, pad))
+        if self._world > 1:
+            tokens = gather_rows(tokens, self.group)
+        self._add_stats(stats)
+        tokens, done = tokens[:b], None
+        if tokens.is_cuda:
+            host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+            host.copy_(tokens, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            tokens = host
+        return batch, tokens, done, item
+
+    @staticmethod
+    def _drain(entry: tuple, results: list, flight: InFlight) -> None:
+        batch, tokens, done, _ = entry
+        if done is not None:
+            done.synchronize()
+        for idx, row in zip(batch.indices, tokens.numpy().copy()):
+            results[idx] = row
+        flight.release()
 
     def predict_batch_tokens(self, image_list: list, beam_width: int = 1, batch_size: int = 8,
                              max_len: int | None = None) -> list[np.ndarray]:
-        """Token rows (with <sos>, <eos> and trailing <pad>) in input order."""
+        """Token rows (with <sos>, <eos> and trailing <pad>) in input order,
+        through the in-flight pipeline (module docstring)."""
+        rt = self.config.runtime
+        check_nesting(rt.matmul_precision)  # the dispatch thread's scope would wait for this thread's other one
+        dec_cfg = self._dec_cfg(beam_width, max_len)
+        flight = InFlight(2 * max(1, rt.max_inflight_batches))
         results: list = [None] * len(image_list)
-        for batch in self.preprocessor.iter_batches(image_list, max_batch=batch_size):
-            tokens = self.decode_prepared(batch, beam_width, max_len)
-            for idx, row in zip(batch.indices, tokens):
-                results[idx] = row
+        decoded: deque = deque()
+        worker = threading.Thread(target=self._dispatch_stage, args=(image_list, batch_size, flight),
+                                  name="khmer-ocr-dispatch", daemon=True)
+        worker.start()
+        try:
+            with torch.inference_mode():
+                while True:
+                    # drain the oldest when the dispatch stage waits for a slot or nothing else is ready
+                    if decoded and (flight.full() or flight.ready.empty()):
+                        self._drain(decoded.popleft(), results, flight)
+                        continue
+                    item = flight.ready.get()
+                    if item is _DONE:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    decoded.append(self._decode_dispatched(item, dec_cfg))
+                while decoded:
+                    self._drain(decoded.popleft(), results, flight)
+        finally:
+            flight.stop.set()
+            worker.join()
+            self.max_batches_in_flight = flight.high
         return results
 
     def predict_batch(self, image_list: list, beam_width: int = 1, batch_size: int = 8,

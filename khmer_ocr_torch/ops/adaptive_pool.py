@@ -26,10 +26,20 @@ def adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=64)
+def pool_matrix_on(in_size: int, out_size: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``adaptive_pool_matrix`` on ``device`` in ``dtype``, copied there once:
+    a call then makes no host-to-device copy, which would wait on the
+    stream and which a CUDA graph's capture cannot hold. Made outside
+    inference mode, so that training may use it too."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(adaptive_pool_matrix(in_size, out_size)).to(device, dtype)
+
+
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """x: (..., H, W, C) NHWC -> (..., out_h, out_w, C)."""
     h, w = x.shape[-3], x.shape[-2]
-    ah = torch.from_numpy(adaptive_pool_matrix(h, out_hw[0])).to(x.device, x.dtype)
-    aw = torch.from_numpy(adaptive_pool_matrix(w, out_hw[1])).to(x.device, x.dtype)
+    ah = pool_matrix_on(h, out_hw[0], x.device, x.dtype)
+    aw = pool_matrix_on(w, out_hw[1], x.device, x.dtype)
     x = torch.einsum("oh,...hwc->...owc", ah, x)
     return torch.einsum("pw,...hwc->...hpc", aw, x)

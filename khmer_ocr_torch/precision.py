@@ -51,13 +51,20 @@ def check_precision(precision: str) -> None:
         raise ValueError(f"matmul_precision {precision!r}: one of {PRECISIONS}")
 
 
-@contextlib.contextmanager
-def matmul_precision(precision: str):
+def check_nesting(precision: str) -> None:
+    """Raise ValueError where this thread holds a scope of another precision,
+    as ``matmul_precision(precision)`` would here: for a caller whose scopes
+    open on another thread, which would wait for this one's to close."""
     check_precision(precision)
     mine = getattr(_local, "precision", None)
-    if mine is not None:
-        if mine != precision:
-            raise ValueError(f"a matmul_precision({precision!r}) scope inside this thread's {mine!r} scope")
+    if mine is not None and mine != precision:
+        raise ValueError(f"a matmul_precision({precision!r}) scope inside this thread's {mine!r} scope")
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    check_nesting(precision)
+    if getattr(_local, "precision", None) is not None:
         yield
         return
     with _gate:

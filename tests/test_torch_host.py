@@ -299,7 +299,7 @@ def _port_main(tmp: Path) -> None:
     from khmer_ocr_torch.config import ModelConfig, OCRConfig, RuntimeConfig
     from khmer_ocr_torch.convert.from_jax import save_npz, seeded_params
     from khmer_ocr_torch.data.synthetic import synthetic_lines
-    from khmer_ocr_torch.infer import api
+    from khmer_ocr_torch.infer import api, predictor
     from khmer_ocr_torch.infer.predictor import Predictor
 
     torch.set_num_threads(2)
@@ -312,16 +312,16 @@ def _port_main(tmp: Path) -> None:
     meta["cold"] = cold.predict_batch(lines, beam_width=3, max_len=12)
     warm = Predictor(params=params, batch_stats=stats, model_cfg=cfg, device="cpu")
     seen = []
-    real = warm.decode_prepared
+    real = predictor.infer_batch
 
-    def spy(batch, beam_width, max_len=None):
-        seen.append(beam_width)
-        return real(batch, beam_width, max_len)
+    def spy(*args, **kw):  # each bucket batch's device part, in predict_batch's pipeline too
+        seen.append(args[4].beam_width)
+        return real(*args, **kw)
 
-    warm.decode_prepared = spy
+    predictor.infer_batch = spy
     warm.warmup(beam_widths=(1, 3), batch_size=2, chunk_buckets=(1, 2))
     meta["warmup_batches"] = [seen.count(1), seen.count(3)]
-    warm.decode_prepared = real
+    predictor.infer_batch = real
     meta["warm"] = warm.predict_batch(lines, beam_width=3, max_len=12)
 
     save_npz(tmp / "toy.npz", params, stats, cfg)

@@ -31,7 +31,9 @@ step on the whole batch:
     the running pair within 1e-6;
   * ``Predictor(process_group=)``: the strings and tokens of 7 lines at
     batch 5 over batch buckets (1, 3, 5) (odd batches, padded to the world
-    size) identical to one process's, greedy and beam 3;
+    size) identical to one process's, greedy and beam 3; at batch 1 through
+    the in-flight pipeline with ``max_inflight_batches`` 1, the one
+    process's strings and tokens, at most two batches in flight;
   * ``train()`` over the group: one epoch of 8 lines at batch 4 (3 steps:
     the bucket tails are padded) leaves every
     rank's params bit-identical, rank 0 alone writes the metrics and the
@@ -171,6 +173,19 @@ if __name__ != "__main__":
             assert got["strings"] == ref["strings"] and got["tokens"] == ref["tokens"], f"rank {r}"
 
     @pytest.mark.parametrize("world", WORLDS)
+    def test_predictor_pipeline_over_the_group_equals_one_process(runs, world):
+        """Every rank serving the 7 lines a batch a line through the
+        in-flight pipeline (``max_inflight_batches`` 1: the dispatch stage
+        runs a batch ahead, the decode stage gathers each batch's rows in
+        order): the one process's strings at batch 5, and its tokens."""
+        ref = runs["ref_meta"]["serve_pipeline"]
+        assert ref["strings"] == runs["ref_meta"]["serve_3"]["strings"]
+        for r in range(world):
+            got = runs["meta"][(world, r)]["serve_pipeline"]
+            assert got["strings"] == ref["strings"] and got["tokens"] == ref["tokens"], f"rank {r}"
+            assert 1 <= got["high"] <= 2, got
+
+    @pytest.mark.parametrize("world", WORLDS)
     def test_train_loop_over_the_group(runs, world):
         metas = [runs["meta"][(world, r)]["loop"] for r in range(world)]
         assert all(m["steps"] == runs["ref_meta"]["loop"]["steps"] == 3 for m in metas)  # 2 full batches, 1 tail
@@ -286,6 +301,12 @@ def _run(tmp: Path, world: int, rank: int) -> None:
         tokens = pred.predict_batch_tokens(lines, beam_width=beam, batch_size=5)
         meta[f"serve_{beam}"] = {"strings": [pred.tokenizer.decode(t) for t in tokens],
                                  "tokens": [t.tolist() for t in tokens]}
+    # the same lines through the in-flight pipeline, a batch a line, at most two batches in flight
+    pipe = Predictor(params=params, batch_stats=stats, model_cfg=scfg, device="cpu", process_group=group,
+                     config=OCRConfig(runtime=RuntimeConfig(batch_buckets=(1, 3, 5), max_inflight_batches=1)))
+    tokens = pipe.predict_batch_tokens(lines, beam_width=3, batch_size=1)
+    meta["serve_pipeline"] = {"strings": [pipe.tokenizer.decode(t) for t in tokens],
+                              "tokens": [t.tolist() for t in tokens], "high": pipe.max_batches_in_flight}
 
     # train() over the group: one epoch of 8 lines at batch 4
     lcfg = OCRConfig(model=ModelConfig(**{**SERVE, "dropout": 0.0}),
