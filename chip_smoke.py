@@ -111,8 +111,19 @@ Phases, each fatal on failure (exit code != 0, no result line):
      gradients 1e-4 x max(1, |ref|)), one K1 and one K1b launch a step;
      three steps against the JAX package's golden losses and gradient norms
      (khmer_ocr_torch/assets/train_golden.json, 1e-4 relative); 50 steps
-     on 4 samples overfit; two epochs of train() on 256 synthetic lines with
-     device augmentation and dropout, checkpoints and a resume;
+     on 4 samples overfit; the steps as captured CUDA graphs
+     (train/graphs.py): 8 steps of the one-step graph and two groups of 8
+     against the eager steps from one state, batch and generator seed,
+     losses within 1e-5 relative and params within 1e-5, with dropout 0
+     (the one-step graph also with dropout 0.1 and augmentation p 0.8), K1
+     and K1b counted once a step by each replay; ms a step, idle share, K1
+     and K1b launches a step, peak memory, the graphs' pool and capture time
+     for the eager step, the one-step graph and the group of 8 (the first
+     two also at matmul precision "default"); two epochs of train() (the JAX
+     package's batch order, dispatch groups of 8, every step through the
+     graphs) on 256 synthetic lines of mixed widths with device
+     augmentation and dropout, checkpoints and a resume, and on 512 lines of
+     16 chunks (one shape): lines/s, captures, replays, the pool;
  11. layout training (detection/train.py) at MiT-b0 widths: three steps
      against the JAX package's golden losses
      (khmer_ocr_torch/assets/layout_train_golden.json, 1e-4 relative), the
@@ -902,15 +913,161 @@ def bucket_batch(chunks: int, batch: int, max_label: int, seed: int):
     return next(ds.epoch_batches(batch, np.random.default_rng(seed), max_label_len=max_label))
 
 
+GRAPH_STEPS = 8  # steps of each eager-against-graph run (the group's run takes two groups of them)
+GRAPH_TOL = 1e-5  # losses (relative) and params (absolute) of the graphed steps against the eager steps
+
+
+def train_steps_by(torch, cfg, batch, aug: float, mode: str, steps: int, seed: int = 0):
+    """``steps`` train steps from the seeded state on ``batch`` (lr 1e-4,
+    the device generator seeded by ``seed``) by ``mode``: "eager" (the step
+    maker without graphs), "graph" (the one-step graph, captured at the
+    first step) or "group" (groups of GRAPH_STEPS steps as one graph) ->
+    (losses, params, the launch counts, the TrainGraphs or None)."""
+    from khmer_ocr_torch.train.graphs import TrainGraphs
+    from khmer_ocr_torch.train.step import init_train_state, make_train_multi_step, make_train_step, tree_leaves
+
+    graphs = None if mode == "eager" else TrainGraphs()
+    state = init_train_state(cfg, 0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reset_counts()
+    losses = []
+    if mode == "group":
+        multi = make_train_multi_step(cfg, (100, 84), aug, graphs=graphs)
+        stacked = {k: torch.stack([v] * GRAPH_STEPS) for k, v in batch.items()}
+        for _ in range(steps // GRAPH_STEPS):
+            state, m = multi(state, stacked, gen, [1e-4] * GRAPH_STEPS)
+            losses += list(m["loss"])
+    else:
+        step = make_train_step(cfg, (100, 84), aug, graphs=graphs)
+        for _ in range(steps):
+            state, m = step(state, batch, gen, 1e-4)
+            losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return torch.stack(losses).tolist(), [t.detach().clone() for t in tree_leaves(state.params)], train_counts(), graphs
+
+
+def train_graphs_agree(torch, cfg, batch, aug: float, label: str, modes=("graph", "group")) -> dict:
+    """The one-step graph over GRAPH_STEPS steps and the group over two
+    groups (``modes``) against the eager steps from the same state, batch
+    and generator seed (cuDNN deterministic, so that both take the same
+    sums): losses within GRAPH_TOL relative, params within GRAPH_TOL, K1
+    and K1b once a step (the replays' counts moved from each capture)."""
+    from khmer_ocr_torch.train import graphs as tgraphs
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {}
+        for mode in modes:
+            steps = GRAPH_STEPS if mode == "graph" else 2 * GRAPH_STEPS
+            el, ep, _, _ = train_steps_by(torch, cfg, batch, aug, "eager", steps)
+            tgraphs.reset_counts()
+            gl, gp, counts, graphs = train_steps_by(torch, cfg, batch, aug, mode, steps)
+            (entry,) = graphs.shapes.values()
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, el))
+            param_err = max((a - b).abs().max().item() for a, b in zip(gp, ep))
+            k = 1 if mode == "graph" else GRAPH_STEPS
+            row = dict(steps=steps, loss_rel=loss_rel, param_err=param_err, k1=counts["k1"], k1b=counts["k1b"],
+                       replays=tgraphs.replays, replayed_steps=tgraphs.replayed_steps, counts_a_replay=entry.counts,
+                       first_losses=[round(v, 6) for v in gl[:3]])
+            print(f"[train] {label}, {mode} against eager, {steps} steps: losses rel {loss_rel:.1e}, params "
+                  f"|diff| {param_err:.1e}; launches K1 {counts['k1']}, K1b {counts['k1b']} ({entry.counts} a replay, "
+                  f"{tgraphs.replays} replays of {tgraphs.replayed_steps} steps); losses {row['first_losses']} ...")
+            if not (loss_rel <= GRAPH_TOL and param_err <= GRAPH_TOL):
+                fail(f"train graphs ({label}, {mode}): losses rel {loss_rel:.2e}, params {param_err:.2e} "
+                     f"against the eager steps")
+            if (counts["k1"], counts["k1b"], counts["other"]) != (steps, steps, 0) or entry.counts != (k, k) \
+                    or tgraphs.replayed_steps != steps - k:
+                fail(f"train graphs ({label}, {mode}): launches {counts}, {entry.counts} a replay, "
+                     f"{tgraphs.replayed_steps} replayed steps")
+            out[mode] = row
+            del graphs, entry
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def train_step_times(torch, cfg, batch, smi) -> dict:
+    """ms a step at the parity batch three ways, each after its warm-up (a
+    capture for the graphs), GRAPH_STEPS steps timed with no host read
+    between them: the eager step, the one-step graph replayed back to back
+    and the group of GRAPH_STEPS as one graph; the idle share of one more
+    group, or half as many single steps, under torch.profiler; K1 and K1b
+    launches a step;
+    peak memory; the graphs' pool and capture time. At matmul precision
+    "highest" (train()'s default), and the first two at "default" (TF32
+    products and convolutions)."""
+    from khmer_ocr_torch.infer.encode_graph import pool_bytes
+    from khmer_ocr_torch.train import graphs as tgraphs
+    from khmer_ocr_torch.train.graphs import TrainGraphs
+    from khmer_ocr_torch.train.step import init_train_state, make_train_multi_step, make_train_step
+
+    out = {}
+    stacked = {k: torch.stack([v] * GRAPH_STEPS) for k, v in batch.items()}
+    for precision, mode in [("highest", "eager"), ("highest", "graph"), ("highest", "group"), ("default", "eager"),
+                            ("default", "graph")]:
+        graphs = None if mode == "eager" else TrainGraphs()
+        state = init_train_state(cfg, 0, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if mode == "group":
+            multi = make_train_multi_step(cfg, (100, 84), 0.0, graphs=graphs, precision=precision)
+            steps = lambda n: [multi(state, stacked, gen, [1e-4] * GRAPH_STEPS) for _ in range(n // GRAPH_STEPS)]
+        else:
+            one = make_train_step(cfg, (100, 84), 0.0, graphs=graphs, precision=precision)
+            steps = lambda n: [one(state, batch, gen, 1e-4) for _ in range(n)]
+        label = f"{mode}, {precision}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(GRAPH_STEPS if mode == "group" else 1)  # warm-up; the graphs capture here
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        tgraphs.reset_counts()
+        t0 = time.perf_counter()
+        steps(GRAPH_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
+        c = train_counts()
+        if graphs and (tgraphs.captures, tgraphs.replayed_steps) != (0, GRAPH_STEPS):
+            fail(f"train step times ({label}): {tgraphs.captures} captures and {tgraphs.replayed_steps} replayed "
+                 f"steps in the timed window")
+        peak = torch.cuda.max_memory_allocated() / MIB
+        prof = device_profile(lambda: steps(GRAPH_STEPS if mode == "group" else GRAPH_STEPS // 2))
+        idle = None if prof is None else 1.0 - prof[0] / prof[1]
+        entry = next(iter(graphs.shapes.values())) if graphs else None
+        out[label] = dict(ms=ms, idle=idle, k1_a_step=c["k1"] / GRAPH_STEPS, k1b_a_step=c["k1b"] / GRAPH_STEPS,
+                          peak_mib=peak, warmup_s=warm_s, pool_mib=pool_bytes(graphs.pool()) / MIB if graphs else None,
+                          capture_s=entry.capture_s if entry else None,
+                          top=[(k, round(v, 2)) for k, v in prof[2][:3]] if prof else None)
+        print(f"[train] {label}: {ms:.2f} ms a step ({32e3 / ms:.1f} lines/s), idle "
+              f"{'not measured' if idle is None else f'{idle:.1%}'}, K1 {out[label]['k1_a_step']:.2f} and K1b "
+              f"{out[label]['k1b_a_step']:.2f} launches a step, peak allocated {peak:.1f} MiB"
+              + (f", the pool {out[label]['pool_mib']:.1f} MiB, capture {entry.capture_s:.2f} s (the first batch's "
+                 f"eager steps with it)" if entry else "") + f"; {smi}")
+        if (c["k1"], c["k1b"], c["other"]) != (GRAPH_STEPS, GRAPH_STEPS, 0):
+            fail(f"train step times ({label}): launches {c} over {GRAPH_STEPS} steps")
+        del graphs, state, entry
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(torch, smi):
     """The training path at the flagship widths (seeded params): (1) one
     step's loss and gradients by the kernel path against the plain LSTM path
     on the card, batch 32 of 16-chunk lines with 256-long labels, dropout 0,
     with exactly one K1 and one K1b launch a step; (2) three steps against
     the JAX package's golden losses and gradient norms; (3) 50 steps on 4
-    samples overfit (dropout 0); (4) two epochs of train() on 256 synthetic lines,
-    device augmentation and dropout 0.1, checkpoint and resume. Returns a
-    train step's K1 and K1b launches."""
+    samples overfit (dropout 0); (4) the steps as captured CUDA graphs
+    (train/graphs.py): the one-step graph and the group of 8 against the
+    eager steps (dropout 0; the one-step graph also at dropout 0.1 with
+    augmentation p 0.8 from one generator seed), K1 and K1b counted once a
+    step by each replay, and the three timed with their idle shares; (5)
+    two epochs of train() on
+    256 synthetic lines of mixed widths, device augmentation and dropout
+    0.1, checkpoint and resume, then on 512 lines of 16 chunks (one shape:
+    two groups of 8 an epoch). Returns a train step's K1 and K1b launches
+    and the numbers of (4) and (5)."""
     import contextlib
     import logging
     import tempfile
@@ -968,7 +1125,22 @@ def phase_train(torch, smi):
     if (c["k1"], c["k1b"], c["other"]) != (n_steps, n_steps, 0):
         fail(f"train_step: launches {c} over {n_steps} steps, expected one K1 and one K1b a step")
     launches = {"k1_launches": c["k1"] // n_steps, "k1b_launches": c["k1b"] // n_steps}
-    del state, batch
+    del state
+
+    # the steps as captured CUDA graphs (train/graphs.py): against the eager steps, then timed three ways
+    dcfg = ModelConfig(dropout=0.1)
+    t0 = time.perf_counter()
+    graphs = {"agree": train_graphs_agree(torch, cfg0, batch, 0.0, "dropout 0, no augmentation"),
+              "agree_random": train_graphs_agree(torch, dcfg, batch, 0.8, "dropout 0.1, augmentation p 0.8",
+                                                 ("graph",))}
+    graphs["agree_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphs["times"] = train_step_times(torch, cfg0, batch, smi)
+    graphs["times_s"] = time.perf_counter() - t0
+    print(f"[train] the graphs against the eager steps took {graphs['agree_s']:.1f} s, the step times "
+          f"{graphs['times_s']:.1f} s")
+    launches["graphs"] = graphs
+    del batch
 
     # golden: the JAX package's three steps (CPU) from the same seeded params and batch
     golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "train_golden.json").read_text())
@@ -1003,38 +1175,64 @@ def phase_train(torch, smi):
         fail(f"train overfit: {losses[0]:.4f} -> {losses[-1]:.4f}, not below 10%")
     del state
 
-    # two epochs of the port's train() on 256 synthetic lines, then a resume from the first checkpoint
+    # two epochs of the port's train() on 256 synthetic lines of mixed widths (groups of 8 rarely fill: the
+    # partial groups flush singly), then a resume from the first checkpoint; then 512 lines of 16 chunks (one
+    # shape: two full groups of 8 an epoch)
+    from khmer_ocr_torch.data.synthetic import synthetic_samples
+    from khmer_ocr_torch.train import graphs as tgraphs
+    from khmer_ocr_torch.train.data import LineDataset
+
     ocfg = OCRConfig(train=TrainConfig(batch_size=32, checkpoint_every_epochs=1))
-    dataset = synthetic_dataset(256, 0, ocfg.train)
     logged = []
     handler = logging.Handler()
     handler.emit = lambda r: logged.append(r.getMessage())
-    logging.getLogger("khmer_ocr_torch.train.loop").addHandler(handler)
-    logging.getLogger("khmer_ocr_torch.train.loop").setLevel(logging.INFO)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
+    for name in ("khmer_ocr_torch.train.loop", "khmer_ocr_torch.train.graphs"):
+        logging.getLogger(name).addHandler(handler)
+        logging.getLogger(name).setLevel(logging.INFO)
+
+    def run_train(dataset, label, out, **kw):
+        logged.clear()
         reset_counts()
+        tgraphs.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state = train(dataset, ocfg, tmp / "run", num_epochs=2, log_every=4, eye_test_every=8,
-                      metrics_path=tmp / "metrics.jsonl")
+        metrics = out.parent / f"{out.name}.jsonl"
+        state = train(dataset, ocfg, out, num_epochs=2, log_every=4, eye_test_every=8, metrics_path=metrics, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         c = train_counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        epochs = [json.loads(line) for line in (tmp / "metrics.jsonl").read_text().splitlines()]
-        print(f"[train] train(): 2 epochs of 256 lines, batch 32, device augment p 0.8, dropout 0.1: {state.step} steps "
-              f"in {wall:.1f} s ({state.step / wall:.2f} steps/s, {state.step * 32 / wall:.1f} lines/s with "
-              f"padding repeats); per epoch {[round(e['lines_per_sec'], 1) for e in epochs]} lines/s, mean loss "
-              f"{[round(e['mean_loss'], 4) for e in epochs]}; launches K1 {c['k1']}, K1b {c['k1b']}; peak memory "
-              f"{peak:.2f} GiB")
-        eye_tests = sum(e["batches"] // 8 for e in epochs)  # each an inference encode: one K1 launch
+        epochs = [json.loads(line) for line in metrics.read_text().splitlines()]
+        eye_tests = sum(m.startswith("eye test") for m in logged)  # each an inference encode: one K1 launch
+        growth = [float(m.split("the pool grew by ")[1].split()[0]) for m in logged if "the pool grew by" in m]
+        pool = sum(growth)
+        row = dict(steps=state.step, seconds=wall, lines_per_s=state.step * 32 / wall,
+                   epoch_lines_per_s=[e["lines_per_sec"] for e in epochs], mean_loss=[e["mean_loss"] for e in epochs],
+                   captures=tgraphs.captures, captured_steps=tgraphs.captured_steps, replays=tgraphs.replays,
+                   replayed_steps=tgraphs.replayed_steps, pool_mib=pool, pool_growth_mib=growth, k1=c["k1"],
+                   k1b=c["k1b"], eye_tests=eye_tests,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[train] train(): {label}, 2 epochs, batch 32, device augment p 0.8, dropout 0.1: {state.step} steps "
+              f"in {wall:.1f} s ({row['lines_per_s']:.1f} lines/s with padding repeats; per epoch "
+              f"{[round(v, 1) for v in row['epoch_lines_per_s']]}), mean loss {[round(v, 4) for v in row['mean_loss']]}"
+              f"; {row['captures']} captures ({row['captured_steps']} steps eager, their first batches), "
+              f"{row['replays']} replays ({row['replayed_steps']} steps), the pool grew by {pool:.1f} MiB "
+              f"(capture by capture {growth}); launches "
+              f"K1 {c['k1']}, K1b {c['k1b']}, {eye_tests} eye tests; peak memory {row['peak_gib']:.2f} GiB")
         if (c["k1"], c["k1b"], c["other"]) != (state.step + eye_tests, state.step, 0):
             fail(f"train(): launches {c} for {state.step} steps and {eye_tests} eye tests")
+        if row["captured_steps"] + row["replayed_steps"] != state.step or not row["replays"]:
+            fail(f"train(): {row['captured_steps']} steps by captures and {row['replayed_steps']} by replays of "
+                 f"{state.step}: a step ran outside the graphs")
+        return state, epochs, row
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        state, epochs, mixed = run_train(synthetic_dataset(256, 0, ocfg.train), "256 lines of 1-16 chunks",
+                                         tmp / "run")
         if not all((tmp / "run" / f"epoch{e:03d}" / "state.pt").exists() for e in (1, 2)):
             fail("train(): checkpoints missing")
-        resumed = train(dataset, ocfg, tmp / "resumed", num_epochs=2, resume_from=tmp / "run" / "epoch001",
-                        metrics_path=tmp / "resumed.jsonl")
+        resumed = train(synthetic_dataset(256, 0, ocfg.train), ocfg, tmp / "resumed", num_epochs=2,
+                        resume_from=tmp / "run" / "epoch001", metrics_path=tmp / "resumed.jsonl")
         again = json.loads((tmp / "resumed.jsonl").read_text().splitlines()[-1])
         loss_rel = abs(again["mean_loss"] - epochs[1]["mean_loss"]) / epochs[1]["mean_loss"]
         print(f"[train] resume from epoch001: epoch {again['epoch']} only, to step {resumed.step} (uninterrupted run "
@@ -1043,6 +1241,14 @@ def phase_train(torch, smi):
         if (resumed.step != state.step or again["epoch"] != 2 or not any("resumed from" in m for m in logged)
                 or not loss_rel <= 1e-3):
             fail(f"train(): resume reached step {resumed.step} (expected {state.step}), loss rel {loss_rel:.2e}")
+        one = LineDataset(synthetic_samples([16] * 512, 1), train_cfg=ocfg.train, device_augment=True)
+        _, _, wide = run_train(one, "512 lines of 16 chunks", tmp / "wide")
+        if wide["steps"] != 32 or wide["captures"] != 1 or wide["replayed_steps"] != 24:
+            fail(f"train() on one shape: {wide['steps']} steps, {wide['captures']} captures, "
+                 f"{wide['replayed_steps']} replayed steps (expected 32, 1 group graph, 24)")
+    for name in ("khmer_ocr_torch.train.loop", "khmer_ocr_torch.train.graphs"):
+        logging.getLogger(name).removeHandler(handler)
+    launches["train_mixed"], launches["train_wide"] = mixed, wide
     return launches
 
 
@@ -1229,8 +1435,9 @@ def phase_host_augment(torch, smi):
         loop.make_train_step = real_step
     c = train_counts()
     first = seen[2]
-    host = next(dataset.epoch_batches(16, np.random.default_rng(loop._epoch_seed(ocfg.train.seed, 1)),
-                                      sample_size=64, max_label_len=ocfg.model.decode_max_len + 1))
+    # the first batch dispatched is the epoch's first: its partial group is the first flushed (no group of 8 fills)
+    host = next(dataset.epoch_batches(16, np.random.default_rng(ocfg.train.seed), sample_size=64,
+                                      max_label_len=ocfg.model.decode_max_len + 1))
     same = all(np.array_equal(first[k], v) for k, v in host.as_dict().items())
     print(f"[host_augment] train(): 2 epochs of 64 lines, batch 16, host augment p {ocfg.train.augment_prob} "
           f"(device step's augmentation probability {seen[0]}): {state.step} steps in {wall:.1f} s, mean loss "
@@ -3591,7 +3798,10 @@ def main() -> int:
     t0 = time.perf_counter()
     document = phase_document(torch, smi)
     print(f"[document] {json.dumps(document)}; the phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     tr = phase_train(torch, smi)
+    print(f"[train] {json.dumps({k: v for k, v in tr.items() if k != 'graphs'})}; {json.dumps(tr['graphs'])}; "
+          f"the phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     layout_train = phase_layout_train(torch, smi)
     print(f"[layout_train] {json.dumps(layout_train)}; the phase took {time.perf_counter() - t0:.1f} s")
@@ -3643,6 +3853,8 @@ def main() -> int:
         # launches: one train step's (the training path)
         entry("lstm_adjoint", "lstm_backward.cu", tpu_kernel_site("ops/pallas/lstm.py", "_vjp_bwd"),
               tr["k1b_launches"], k1b_err, k1b_main, k1b_rows, backward_ms=k1b_main["backward_ms"],
+              graph_launches_a_replay={m: tr["graphs"]["agree"][m]["counts_a_replay"] for m in ("graph", "group")},
+              train_loop_launches={"mixed": tr["train_mixed"]["k1b"], "wide": tr["train_wide"]["k1b"]},
               host_augment_train_launches=host_augment["k1b"], parallel_train_launches=parallel["k1b_train"],
               kernel_route=f"{k1b_main['route']}, {k1b_main['rows']} rows", cluster_ms=k1b_main["cluster_ms"],
               tile_ms=k1b_main["tile_ms"]),

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from ..convert.from_jax import _unflatten, segformer_params_from_jax, segformer_params_to_jax
-from ..train.step import adam_update
+from ..train.step import adam_update, step_scalars
 from .segformer import BN_MOMENTUM, SegFormer, SegFormerConfig, _BatchNorm, resize_bilinear  # noqa: F401
 
 logger = logging.getLogger(__name__)
@@ -104,7 +104,8 @@ def make_train_step(model: SegFormer, lr: float):
         model.train()
         loss = segformer_loss(model, images, labels)
         grads = torch.autograd.grad(loss, params)
-        adam_update(params, list(grads), opt_state, lr)
+        sc = step_scalars(opt_state, [lr], 0.9, 0.999, params[0].device)[0]
+        adam_update(params, list(grads), opt_state, sc[0], sc[1:])
         return loss.detach()
 
     return step

@@ -100,16 +100,23 @@ class LineDataset:
         n = min(self.pre.num_chunks(line.shape[1]), CHUNK_BUCKETS_TRAIN[-1])
         return line, n, self.samples[idx][1]
 
-    def epoch_batches(self, batch_size: int, rng: np.random.Generator, sample_size: int | None = None,
-                      num_workers: int = 8, max_label_len: int | None = None):
-        """Yields the batches of one epoch over a random subset of
-        ``sample_size`` samples (all, shuffled, by default)."""
+    def epoch_draws(self, rng: np.random.Generator, sample_size: int | None = None):
+        """-> (sample indices, per-sample seeds) of one epoch: every draw an
+        epoch takes from ``rng``, in the JAX package's order, and no image
+        work (``train()`` replays them to resume a run where it stopped)."""
         idxs = np.arange(len(self.samples))
         if sample_size is not None and sample_size < len(idxs):
             idxs = rng.choice(idxs, size=sample_size, replace=False)
         else:
             rng.shuffle(idxs)
-        child_seeds = rng.integers(0, 2 ** 31, size=len(idxs))  # drawn in every mode, as the JAX package does
+        # the seeds are drawn in every mode, as the JAX package draws them
+        return idxs, rng.integers(0, 2 ** 31, size=len(idxs))
+
+    def epoch_batches(self, batch_size: int, rng: np.random.Generator, sample_size: int | None = None,
+                      num_workers: int = 8, max_label_len: int | None = None):
+        """Yields the batches of one epoch over a random subset of
+        ``sample_size`` samples (all, shuffled, by default)."""
+        idxs, child_seeds = self.epoch_draws(rng, sample_size)
         groups: dict[tuple[int, int], list] = {}
         cap = max_label_len or self.train_cfg.max_label_len
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
