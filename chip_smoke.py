@@ -92,7 +92,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the flagship recognizer: the packed maps of one group of 4 against the
      JAX package's (khmer_ocr_torch/assets/document_golden.*), class ids
      equal off near-tied pixels and heatmaps within 1 step, the per-page
-     path against the batched one; the post-process on this machine's
+     path against the batched one; the detector's forwards as captured
+     CUDA graphs (detection/graphs.py) against the eager forward bit for
+     bit: the group of 4, 3 pages padded to 4 (a replay, no capture), each
+     page's per-page bucket; forward + copy eager against the graph, the
+     cache's keys, bytes and pool, captures and replays counted; the
+     post-process on this machine's
      OpenCV giving the golden elements from the golden maps and from the
      pages' known layout; the known layout's 64 crops at beam 3 (K1, K2)
      against the JAX strings, near-ties excepted, with CER; process_pages
@@ -124,12 +129,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
      graphs) on 256 synthetic lines of mixed widths with device
      augmentation and dropout, checkpoints and a resume, and on 512 lines of
      16 chunks (one shape): lines/s, captures, replays, the pool;
- 11. layout training (detection/train.py) at MiT-b0 widths: three steps
-     against the JAX package's golden losses
-     (khmer_ocr_torch/assets/layout_train_golden.json, 1e-4 relative), the
-     step at batch 4 x 512 px timed (pages/s, peak memory, idle share), 30
-     steps of finetune() from random init with the loss falling below 0.7 of
-     its first, the .npz round trip in the JAX package's layout;
+ 11. layout training (detection/train.py) at MiT-b0 widths, each step
+     a replayed CUDA graph (detection/graphs.py): three steps against the
+     JAX package's golden losses (khmer_ocr_torch/assets/
+     layout_train_golden.json, 1e-4 relative; a capture, then two
+     replays); 8 graphed steps against 8 eager steps at batch 4 x 512 px
+     from one state, losses, parameters, both Adam moments and the
+     BatchNorm running pair bit for bit; the step eager and graphed in
+     turns (ms, pages/s, peak memory, busy ms and idle share, the pool,
+     the capture); 30 steps of finetune() from random init (1 capture, 29
+     replays) with the loss falling below 0.7 of its first, the .npz round
+     trip in the JAX package's layout;
  12. host augmentation (train/augment.py): one epoch of 16 rendered lines
      against the JAX package's digest (khmer_ocr_torch/assets/
      host_augment_golden.json), then two epochs of train() on the 64 lines
@@ -1268,76 +1278,182 @@ def device_profile(fn):
     return busy_ms(dev), wall, sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
 
 
+LAYOUT_GRAPH_STEPS = 8  # steps of the layout step's graph-against-eager run, and of each timed row
+
+
+def layout_steps_by(torch, graphed: bool, x, y, steps: int) -> tuple:
+    """``steps`` layout train steps from segformer_init(0) at lr 6e-5 on one
+    batch, eagerly or through a LayoutTrainGraphs (captured at the first
+    step) -> (losses, {name: tensor} of every parameter, both Adam moments
+    and the BatchNorm running pair, the cache or None)."""
+    from khmer_ocr_torch.detection.graphs import LayoutTrainGraphs
+    from khmer_ocr_torch.detection.segformer import SegFormerConfig
+    from khmer_ocr_torch.detection.train import make_train_step, segformer_init
+
+    model = segformer_init(0, SegFormerConfig(), "cuda")
+    graphs = LayoutTrainGraphs() if graphed else None
+    step = make_train_step(model, 6e-5, graphs=graphs)
+    losses = torch.stack([step(x, y) for _ in range(steps)]).tolist()
+    torch.cuda.synchronize()
+    names = [n for n, _ in model.named_parameters()]
+    state = {**{f"param/{n}": t.detach().clone() for n, t in model.named_parameters()},
+             **{f"mu/{n}": t.clone() for n, t in zip(names, step.opt_state["mu"])},
+             **{f"nu/{n}": t.clone() for n, t in zip(names, step.opt_state["nu"])},
+             **{f"buffer/{n}": t.clone() for n, t in model.named_buffers()}}
+    return losses, state, graphs
+
+
+def layout_step_times(torch, x, y, smi) -> dict:
+    """ms a layout train step at batch 4 x 512 px, eager and through the
+    graphs, in turns (eager, graph, graph, eager), each after its warm-up
+    (the graph's capture in it): LAYOUT_GRAPH_STEPS steps timed by CUDA
+    events with no host read between them, peak memory, the card's busy
+    time and idle share of 3 more steps under torch.profiler, the pool and
+    the capture's seconds."""
+    import numpy as np
+
+    from khmer_ocr_torch.detection import graphs as dgraphs
+    from khmer_ocr_torch.detection.segformer import SegFormerConfig
+    from khmer_ocr_torch.detection.train import make_train_step, segformer_init
+    from khmer_ocr_torch.infer.encode_graph import pool_bytes
+    from khmer_ocr_torch.precision import matmul_precision
+
+    rows: dict = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        model = segformer_init(0, SegFormerConfig(), "cuda")
+        graphs = dgraphs.LayoutTrainGraphs() if mode == "graph" else None
+        step = make_train_step(model, 6e-5, graphs=graphs)
+        with matmul_precision("highest"):  # finetune's precision (detector.PRECISION)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(x, y)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            dgraphs.reset_counts()
+            ms = cuda_ms(torch, lambda: step(x, y), LAYOUT_GRAPH_STEPS, warmup=0)
+            peak = torch.cuda.max_memory_allocated() / MIB
+            replays = dgraphs.step_replays
+            prof = device_profile(lambda: [step(x, y) for _ in range(3)])
+            loss = step(x, y).item()
+        if prof is None:
+            fail("layout train: the profiler recorded no device activity")
+        busy, wall, top = prof
+        entry = next(iter(graphs.shapes.values())) if graphs else None
+        if graphs and (dgraphs.step_captures, replays) != (0, LAYOUT_GRAPH_STEPS):
+            fail(f"layout train step times ({mode}): {dgraphs.step_captures} captures, {replays} replays in the "
+                 f"timed window")
+        row = dict(ms=ms, pages_per_s=4e3 / ms, peak_mib=peak, busy_ms=busy / 3, idle_share=1 - busy / 3 / ms,
+                   profiled_idle_share=1 - busy / wall, warmup_s=warm_s, loss=loss,
+                   pool_mib=pool_bytes(graphs.pool()) / MIB if graphs else None,
+                   capture_s=entry.capture_s if entry else None, nbytes=graphs.nbytes if graphs else None,
+                   top=[(k, round(v, 2)) for k, v in top[:3]])
+        rows[mode].append(row)
+        print(f"[layout_train] {mode} step, batch 4 x 3 x 512 x 512: {ms:.2f} ms a step ({4e3 / ms:.1f} pages/s), "
+              f"peak allocated {peak:.1f} MiB; the card busy {busy / 3:.2f} ms a step, {row['idle_share']:.1%} idle "
+              f"against the step's {ms:.2f} ms ({row['profiled_idle_share']:.1%} within the profiled window, the "
+              f"profiler's host cost included)"
+              + (f"; the pool {row['pool_mib']:.1f} MiB, the cache {graphs.nbytes / MIB:.1f} MiB, capture "
+                 f"{entry.capture_s:.2f} s (the first batch's eager step with it)" if entry else "")
+              + f"; loss {loss:.4f} on {smi}")
+        if not np.isfinite(loss):
+            fail(f"layout train step ({mode}): loss {loss}")
+        del model, step, graphs, entry
+        torch.cuda.empty_cache()
+    print(f"[layout_train] the longest kernels over 3 graphed steps (ms): {rows['graph'][-1]['top']}")
+    return rows
+
+
 def phase_layout_train(torch, smi):
     """SegFormer layout training (detection/train.py) at MiT-b0 widths, 12
-    labels, on the card: (1) three steps from seeded_segformer_state(0) on
-    two 128 px synthetic pages at lr 6e-5 against the JAX package's golden
-    losses (khmer_ocr_torch/assets/layout_train_golden.json, 1e-4 relative);
-    (2) the step at batch 4 x 512 px timed with CUDA events after warm-up,
-    pages/s, peak memory and the device's idle share under torch.profiler;
-    (3) 30 steps of finetune() from random init on synthetic pages, the loss
-    below 0.7 of its first; (4) the .npz round trip in the JAX package's
-    layout. No kernel of the port lies on this path: every launch count
-    stays 0."""
+    labels, on the card, each step through the layout train graphs
+    (detection/graphs.py) unless said otherwise: (1) three steps from
+    seeded_segformer_state(0) on two 128 px synthetic pages at lr 6e-5 (a
+    capture, its batch run eagerly, then two replays) against the JAX
+    package's golden losses (khmer_ocr_torch/assets/layout_train_golden.json,
+    1e-4 relative); (2) LAYOUT_GRAPH_STEPS steps through the graphs against
+    the eager steps from one state on one batch of 4 x 512 px, losses,
+    parameters, both Adam moments and the BatchNorm running pair equal bit
+    for bit (cuDNN deterministic); (3) the step at batch 4 x 512 px eager
+    and graphed in turns: ms, pages/s, peak memory, busy time and idle
+    share, the pool and the capture; (4) 30 steps of finetune() from random
+    init on synthetic pages, one capture and 29 replays, the loss below 0.7
+    of its first; (5) the .npz round trip in the JAX package's layout. No
+    kernel of the port lies on this path: every launch count stays 0."""
+    import statistics
     import tempfile
 
     import numpy as np
 
     from khmer_ocr_torch.convert.from_jax import seeded_segformer_state
+    from khmer_ocr_torch.detection import graphs as dgraphs
     from khmer_ocr_torch.detection.segformer import SegFormer, SegFormerConfig, build_model
-    from khmer_ocr_torch.detection.train import (finetune, flatten_params, make_train_step, segformer_init,
-                                                 synth_layout_batch, unflatten_params)
+    from khmer_ocr_torch.detection.train import (finetune, flatten_params, make_train_step, synth_layout_batch,
+                                                 unflatten_params)
 
     cfg = SegFormerConfig()
     golden = json.loads((ROOT / "khmer_ocr_torch" / "assets" / "layout_train_golden.json").read_text())
     reset_counts()
+    dgraphs.reset_counts()
     model = build_model(seeded_segformer_state(cfg, golden["seed"]), cfg, "cuda")
-    step = make_train_step(model, golden["lr"])
+    step = make_train_step(model, golden["lr"], graphs=dgraphs.LayoutTrainGraphs())
     x, y = (torch.from_numpy(a).cuda() for a in synth_layout_batch(np.random.RandomState(golden["pages_seed"]),
                                                                     golden["batch"], golden["size"]))
     losses = [step(x, y).item() for _ in range(golden["steps"])]
     err = max(abs(a - b) / abs(b) for a, b in zip(losses, golden["losses"]))
-    print(f"[layout_train] golden: losses {[round(v, 6) for v in losses]} vs {[round(v, 6) for v in golden['losses']]}"
-          f" (worst rel {err:.1e})")
+    print(f"[layout_train] golden through the graphs ({dgraphs.step_captures} capture, {dgraphs.step_replays} "
+          f"replays): losses {[round(v, 6) for v in losses]} vs {[round(v, 6) for v in golden['losses']]} (worst rel "
+          f"{err:.1e}) on {smi}")
     if not err <= 1e-4:
         fail(f"layout train golden: worst relative difference {err:.2e} > 1e-4")
+    if (dgraphs.step_captures, dgraphs.step_replays) != (1, golden["steps"] - 1):
+        fail(f"layout train golden: {dgraphs.step_captures} captures, {dgraphs.step_replays} replays")
     del model, step
 
-    # the step at batch 4 x 512 px
-    model = segformer_init(0, cfg, "cuda")
-    step = make_train_step(model, 6e-5)
+    # the graphed steps against the eager steps, bit for bit
     x, y = (torch.from_numpy(a).cuda() for a in synth_layout_batch(np.random.RandomState(1), 4, 512))
-    for _ in range(2):
-        step(x, y)
-    torch.cuda.reset_peak_memory_stats()
-    n = 8
-    ms = cuda_ms(torch, lambda: step(x, y), n, warmup=0)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = device_profile(lambda: [step(x, y) for _ in range(3)])
-    if prof is None:
-        fail("layout train: the profiler recorded no device activity")
-    busy, wall, top = prof
-    idle = 1 - busy / 3 / ms  # the card's busy time a step against the step timed without the profiler
-    loss = step(x, y).item()
-    print(f"[layout_train] train step, batch 4 x 3 x 512 x 512: {ms:.2f} ms a step ({4e3 / ms:.1f} pages/s), peak "
-          f"memory {peak:.2f} GiB; the card busy {busy / 3:.2f} ms a step, {idle:.1%} idle against the step's "
-          f"{ms:.2f} ms ({1 - busy / wall:.1%} within the profiled window of {wall / 3:.1f} ms a step, the "
-          f"profiler's host cost included); loss {loss:.4f} on {smi}")
-    print(f"[layout_train] the longest kernels over the 3 steps (ms): {[(k, round(v, 2)) for k, v in top]}")
-    if not np.isfinite(loss):
-        fail(f"layout train step: loss {loss}")
-    del model, step, x, y
+    torch.backends.cudnn.deterministic = True
+    try:
+        el, es, _ = layout_steps_by(torch, False, x, y, LAYOUT_GRAPH_STEPS)
+        dgraphs.reset_counts()
+        gl, gs, graphs = layout_steps_by(torch, True, x, y, LAYOUT_GRAPH_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_diff = max(abs(a - b) for a, b in zip(gl, el))
+    diffs = {k: (gs[k] - es[k]).abs().max().item() for k in es}
+    worst = {kind: max(v for k, v in diffs.items() if k.startswith(kind)) for kind in ("param", "mu", "nu", "buffer")}
+    counts = (dgraphs.step_captures, dgraphs.step_replays)
+    print(f"[layout_train] {LAYOUT_GRAPH_STEPS} steps through the graphs against the eager steps, batch 4 x 512 px: "
+          f"losses |diff| {loss_diff:.1e}, parameters {worst['param']:.1e}, Adam's mu {worst['mu']:.1e} and nu "
+          f"{worst['nu']:.1e}, the BatchNorm running pair {worst['buffer']:.1e} ({len(diffs)} tensors); captures "
+          f"{counts[0]}, replays {counts[1]}; losses {[round(v, 6) for v in gl[:3]]} ... on {smi}")
+    if loss_diff or any(worst.values()):
+        bad = sorted((k for k, v in diffs.items() if v), key=lambda k: -diffs[k])[:5]
+        fail(f"layout train graphs: not bit-equal to the eager steps (losses {loss_diff:.2e}, {worst}; {bad})")
+    if counts != (1, LAYOUT_GRAPH_STEPS - 1):
+        fail(f"layout train graphs: {counts[0]} captures, {counts[1]} replays over {LAYOUT_GRAPH_STEPS} steps")
+    agree = dict(steps=LAYOUT_GRAPH_STEPS, loss_diff=loss_diff, **{f"{k}_diff": v for k, v in worst.items()})
+    del graphs, es, gs
 
-    # 30 steps of finetune() from random init on synthetic pages
+    # the step at batch 4 x 512 px, eager and graphed
+    times = layout_step_times(torch, x, y, smi)
+    del x, y
+
+    # 30 steps of finetune() from random init on synthetic pages, through the graphs
+    dgraphs.reset_counts()
     t0 = time.perf_counter()
     model, losses = finetune(steps=30, batch_size=4, image_size=512, lr=3e-4, seed=0, log_every=100)
     torch.cuda.synchronize()
     ft_s = time.perf_counter() - t0
+    ft_counts = (dgraphs.step_captures, dgraphs.step_replays)
     print(f"[layout_train] finetune(): 30 steps at batch 4 x 512 px, lr 3e-4, from random init: loss {losses[0]:.4f}"
           f" -> {losses[-1]:.4f} ({losses[-1] / losses[0]:.1%} of the first) in {ft_s:.1f} s (the host's synthetic "
-          f"pages included)")
+          f"pages included); {ft_counts[0]} capture, {ft_counts[1]} replays; {smi}")
     if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]):
         fail(f"layout finetune: {losses[0]:.4f} -> {losses[-1]:.4f}, not below 70%")
+    if ft_counts != (1, 29):
+        fail(f"layout finetune: {ft_counts[0]} captures and {ft_counts[1]} replays, not 1 and 29")
 
     # the .npz round trip in the JAX package's layout
     flat = flatten_params(model)
@@ -1354,8 +1470,11 @@ def phase_layout_train(torch, smi):
     c = train_counts()
     if c["k1"] or c["k1b"] or c["other"]:
         fail(f"layout train: a kernel was launched ({c}); none lies on this path")
-    return dict(step_ms=ms, pages_per_s=4e3 / ms, peak_gib=peak, busy_ms=busy / 3, idle_share=idle, golden_err=err,
-                finetune_first=losses[0], finetune_last=losses[-1], finetune_s=ft_s)
+    med = lambda mode, k: statistics.median(r[k] for r in times[mode])  # noqa: E731
+    return dict(golden_err=err, agree=agree, times=times, step_ms=med("graph", "ms"), eager_ms=med("eager", "ms"),
+                pages_per_s=4e3 / med("graph", "ms"), idle_share=med("graph", "idle_share"),
+                eager_idle_share=med("eager", "idle_share"), finetune_first=losses[0], finetune_last=losses[-1],
+                finetune_s=ft_s, finetune_counts=ft_counts)
 
 
 def epoch_digest(batches) -> str:
@@ -2535,6 +2654,89 @@ def phase_inflight(torch, smi):
     return out
 
 
+DETECT_REPS = 10  # forward + copy runs of each path, in turns
+
+
+def detection_graphs_agree(torch, det, images, pixels, smi) -> dict:
+    """The detector's forwards through its graphs (detection/graphs.py)
+    against the eager forward on the same pixels, bit for bit: the packed
+    maps of the group of 4 pages at model resolution, the first 3 pages as
+    a short group through predict_maps_batch (padded to 4 with a zero page:
+    no second capture, their maps those of the 4-page group), and each
+    page's per-page bucket path (logits resized to the 256-rounded page
+    size). Then forward + copy to the host eager against the graph, in
+    turns, and the cache's keys and bytes. Captures and replays counted."""
+    import numpy as np
+
+    from khmer_ocr_torch.detection import graphs as dgraphs
+    from khmer_ocr_torch.detection.detector import PRECISION, unpack_maps
+    from khmer_ocr_torch.detection.preprocess import prepare_image
+    from khmer_ocr_torch.detection.segformer import predict_maps
+    from khmer_ocr_torch.infer.encode_graph import pool_bytes
+    from khmer_ocr_torch.precision import matmul_precision
+
+    def eager(px, out_hw):
+        with torch.inference_mode(), matmul_precision(PRECISION):
+            return predict_maps(det.model, torch.from_numpy(px).to(det.device), out_hw, compact=True).cpu().numpy()
+
+    det.graphs.shapes.clear()
+    dgraphs.reset_counts()
+    tile = pixels.shape[2]
+    group = det.packed_maps(pixels)  # the capture: its first batch runs eagerly on the side stream
+    group_replay = det.packed_maps(pixels)
+    want = eager(pixels, (tile, tile))
+    out = dict(group_equal=bool(np.array_equal(group, want)), group_replay_equal=bool(np.array_equal(group_replay,
+                                                                                                     want)))
+    before = (dgraphs.forward_captures, dgraphs.forward_replays)
+    short = det.predict_maps_batch(images[:3], group=4)
+    padded = np.concatenate([pixels[:3], np.zeros_like(pixels[:1])])
+    want_short = eager(padded, (tile, tile))
+    out["short_group_captures"] = dgraphs.forward_captures - before[0]
+    out["short_group_replays"] = dgraphs.forward_replays - before[1]
+    out["short_equal"] = all(np.array_equal(cm, unpack_maps(want_short[i], images[i].size)[0])
+                             and np.array_equal(hm, unpack_maps(want_short[i], images[i].size)[1])
+                             for i, (_, cm, hm) in enumerate(short))
+    out["short_as_in_group"] = bool(np.array_equal(want_short[:3], want[:3]))
+    bucket = []
+    for img in images:
+        _, cm, hm = det.predict_maps(img)
+        _, px, (w, h) = prepare_image(img, tile)
+        ref = unpack_maps(eager(px, (((h + 255) // 256) * 256, ((w + 255) // 256) * 256))[0], (w, h))
+        bucket.append(bool(np.array_equal(cm, ref[0]) and np.array_equal(hm, ref[1])))
+    out["bucket_equal"] = bucket
+    out["captures"], out["replays"] = dgraphs.forward_captures, dgraphs.forward_replays
+    out["keys"] = {f"{k[1]} -> {k[3]}": dict(mib=g.nbytes / MIB, pool_added_mib=g.pool_added / MIB,
+                                             capture_s=g.capture_s) for k, g in det.graphs.shapes.items()}
+    out["cache_mib"], out["pool_mib"] = det.graphs.nbytes / MIB, pool_bytes(det.graphs.pool()) / MIB
+    print(f"[document] the detector's graphs against the eager forward, bit for bit: the group of {len(images)} "
+          f"{out['group_equal']} (replayed {out['group_replay_equal']}); 3 pages padded to 4 {out['short_equal']} "
+          f"({out['short_group_captures']} captures, {out['short_group_replays']} replay; their maps those of the "
+          f"4-page group: {out['short_as_in_group']}); the per-page bucket path {bucket}; {out['captures']} captures, "
+          f"{out['replays']} replays; {smi}")
+    if not (out["group_equal"] and out["group_replay_equal"] and out["short_equal"] and out["short_as_in_group"]
+            and all(bucket)):
+        fail(f"document: the detector's graphs differ from the eager forward ({out})")
+    if (out["short_group_captures"], out["short_group_replays"]) != (0, 1):
+        fail(f"document: the short group took {out['short_group_captures']} captures and "
+             f"{out['short_group_replays']} replays, not 0 and 1")
+    times: dict = {"eager": [], "graph": []}
+    for r in range(DETECT_REPS):
+        for mode in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager(pixels, (tile, tile)) if mode == "eager" else det.packed_maps(pixels)
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    out["forward_copy_ms"] = {m: sorted(v) for m, v in times.items()}
+    med = {m: sorted(v)[len(v) // 2] for m, v in times.items()}
+    print(f"[document] forward + copy of the group of {len(images)} at {tile}x{tile}, medians of {DETECT_REPS} in "
+          f"turns: eager {med['eager']:.3f} ms ({min(times['eager']):.3f}-{max(times['eager']):.3f}), the graph "
+          f"{med['graph']:.3f} ms ({min(times['graph']):.3f}-{max(times['graph']):.3f}); the cache: "
+          f"{len(det.graphs)} keys, {out['cache_mib']:.1f} MiB (the pool {out['pool_mib']:.1f} MiB): "
+          + ", ".join(f"{k} {v['mib']:.1f} MiB (pool +{v['pool_added_mib']:.1f}, capture {v['capture_s']:.2f} s)"
+                      for k, v in out["keys"].items()) + f"; {smi}")
+    return out
+
+
 def phase_document(torch, smi):
     """The page path: the SegFormer layout model (seeded weights, written as
     an HF checkpoint directory), its post-process on the host, and the
@@ -2621,6 +2823,7 @@ def phase_document(torch, smi):
                      f"heatmap step {heat})")
         print(f"[document] SegFormer forward + resize + softmax + pack, a group of {len(pages)} at {tile}x{tile}: "
               f"{seg_ms:.3f} ms on {smi}")
+        out["graphs"] = detection_graphs_agree(torch, det, images, pixels, smi)
         for i, img in enumerate(images):
             _, cm_pp, hm_pp = det.predict_maps(img)
             cm_b, hm_b = unpack_maps(packed[i], img.size)
@@ -3272,11 +3475,11 @@ def phase_precision(torch, smi):
     pixels = detector.prepare_image(Image.fromarray(page), layout.cfg.image_size)[1]
     alone = layout.packed_maps(pixels)
     held, release, entered = threading.Event(), threading.Event(), {}
-    real_maps = detector.predict_maps
+    real_run = layout.graphs.run  # the forward: a replay of the graph the first call captured
 
     def spy(*args, **kw):  # the forward's own precision, and when it began
         entered.update(t=time.perf_counter(), switches=switches())
-        return real_maps(*args, **kw)
+        return real_run(*args, **kw)
 
     def holder():
         with matmul_precision("default"):
@@ -3285,7 +3488,7 @@ def phase_precision(torch, smi):
             entered["released"] = time.perf_counter()
 
     out = []
-    detector.predict_maps = spy
+    layout.graphs.run = spy
     try:
         h = threading.Thread(target=holder)
         h.start()
@@ -3299,7 +3502,7 @@ def phase_precision(torch, smi):
         h.join(30)
         d.join(30)
     finally:
-        detector.predict_maps = real_maps
+        del layout.graphs.run
     same = bool(out) and np.array_equal(out[0], alone)
     print(f"[precision] packed_maps at 'highest' beside a thread holding 'default': waited {waited} (still out after "
           f"{PRECISION_WAIT} s), began {entered.get('t', 0) - entered.get('released', 0):+.4f} s after the scope "

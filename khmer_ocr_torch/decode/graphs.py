@@ -58,7 +58,7 @@ captures = 0
 replays = 0
 replayed_steps = 0
 eager_steps = 0
-_SIDE: dict = {}  # the side stream of each device
+_SIDE: dict = {}  # the side stream of each (device, role)
 
 
 def reset_counts() -> None:
@@ -129,14 +129,17 @@ def precision_key() -> tuple:
     return m.allow_tf32, m.allow_bf16_reduced_precision_reduction, torch.get_float32_matmul_precision()
 
 
-def _side_stream(device: torch.device):
-    """The stream each device's eager chunks and captures run on: one, so
-    that the handles and workspaces made for it (cuBLAS keeps one a stream)
-    are made once, outside any capture's memory pool."""
+def _side_stream(device: torch.device, role: str = "decode"):
+    """The stream each device's eager chunks and captures of ``role`` run
+    on: one, so that the handles and workspaces made for it (cuBLAS keeps
+    one a stream) are made once, outside any capture's memory pool. The
+    decode and the train steps share the "decode" stream; a role whose
+    captures may run on another thread beside theirs (the detection) takes
+    a stream of its own, since two captures on one stream cannot overlap."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SIDE:
-        _SIDE[idx] = torch.cuda.Stream(idx)
-    return _SIDE[idx]
+    if (idx, role) not in _SIDE:
+        _SIDE[idx, role] = torch.cuda.Stream(idx)
+    return _SIDE[idx, role]
 
 
 def tensor_bytes(tree) -> int:
@@ -240,9 +243,14 @@ class GraphCache:
     def nbytes(self) -> int:
         return sum(s.nbytes for s in self.shapes.values())
 
-    def bind(self, params: dict) -> None:
-        """Other params than the last drop every shape made for those."""
-        if params is not self._params:
+    def bind(self, params) -> None:
+        """Other params than the last drop every shape made for those.
+        ``params``: the weights, or a tuple of the objects the graphs read
+        and write (compared item by item)."""
+        last = self._params
+        same = params is last or (isinstance(params, tuple) and isinstance(last, tuple) and len(params) == len(last)
+                                  and all(a is b for a, b in zip(params, last)))
+        if not same:
             self.shapes.clear()
             self._params, self._packed = params, None
 

@@ -5,7 +5,11 @@ host -> artifacts (reference: netra_ocr/detection/detector.py:13-136,
 The model runs on the CUDA card unless the caller passes ``device="cpu"``;
 without a card the constructor raises. Each forward runs in full float32
 (``PRECISION``, the parity mode), scoped to the forward and its copy to the
-host (``precision.matmul_precision``). OpenCV is imported inside the
+host (``precision.matmul_precision``). On the card each forward replays the
+captured CUDA graph of its key (batch and size of the pixels, output size,
+packing: detection/graphs.py), the counterpart of the JAX package's jitted
+forward a key; a ``LayoutInference`` owns its graphs and frees them with
+it. On the CPU the forward runs eagerly. OpenCV is imported inside the
 functions that call it.
 """
 
@@ -21,6 +25,7 @@ import torch
 from ..infer.predictor import resolve_device
 from ..precision import matmul_precision
 from .config import CLASS_COLORS, ID2LABEL, LayoutConfig
+from .graphs import DetectionGraphs
 from .postprocess import extract_layout_elements
 from .preprocess import prepare_image
 from .segformer import SegFormerConfig, build_model, load_hf_checkpoint, predict_maps
@@ -42,6 +47,20 @@ def to_page_size(cm: np.ndarray, hm: np.ndarray, size) -> tuple[np.ndarray, np.n
             cv2.resize(hm, (w, h), interpolation=cv2.INTER_LINEAR))
 
 
+def maps_body(model, out_hw, compact: bool):
+    """-> body(pixels) -> the forward's maps as a tuple: ``(packed,)`` the
+    (B, 2, H, W) uint8 maps, or the class map (B, H, W) int32 and the
+    heatmap (B, H, W) float32, at ``out_hw``."""
+
+    def body(x):
+        if compact:
+            return (predict_maps(model, x, out_hw, compact=True),)
+        class_map, heatmap = predict_maps(model, x, out_hw)
+        return class_map.to(torch.int32), heatmap
+
+    return body
+
+
 def unpack_maps(packed: np.ndarray, size) -> tuple[np.ndarray, np.ndarray]:
     """One page's packed (2, H, W) uint8 maps -> (class map int32, heatmap
     float32 in [0, 1]) at the page's ``size`` = (W, H)."""
@@ -56,7 +75,9 @@ class LayoutInference:
     ``convert.from_jax.segformer_params_from_jax`` or
     ``seeded_segformer_state``; else ``model_dir`` is read by
     ``load_hf_checkpoint``. The constructor puts the model in eval mode and
-    sets no global switch; each forward runs under ``PRECISION``."""
+    sets no global switch; each forward runs under ``PRECISION``, on the
+    card through ``graphs`` (a DetectionGraphs bounded by
+    ``decode.graphs.CACHE_SHARE`` of the card's memory)."""
 
     def __init__(self, model_dir: str | Path | None, config: LayoutConfig | None = None, params=None,
                  seg_cfg: SegFormerConfig | None = None, device=None):
@@ -68,6 +89,19 @@ class LayoutInference:
             logger.info("Loading SegFormer layout model from %s", model_dir)
             state, self.seg_cfg = load_hf_checkpoint(model_dir)
         self.model = build_model(state, self.seg_cfg, self.device)
+        self.graphs = DetectionGraphs()
+
+    def _maps(self, pixels: np.ndarray, out_hw, compact: bool) -> tuple:
+        """(B, 3, S, S) prepared pages -> ``maps_body``'s maps as numpy
+        arrays: one forward (on the card the graph of its key) and one copy
+        to the host, under ``PRECISION``."""
+        body, x = maps_body(self.model, out_hw, compact), torch.from_numpy(pixels)
+        with matmul_precision(PRECISION):
+            if self.device.type == "cuda":
+                maps = self.graphs.run(body, self.model, x, out_hw, compact)
+            else:
+                maps = body(x.to(self.device))
+        return tuple(m.numpy() for m in maps)
 
     @torch.inference_mode()
     def predict_maps(self, image_source):
@@ -81,31 +115,26 @@ class LayoutInference:
         returns the int32 and float32 maps."""
         image, pixels, (w, h) = prepare_image(image_source, self.cfg.image_size)
         hb, wb = ((h + 255) // 256) * 256, ((w + 255) // 256) * 256
-        x = torch.from_numpy(pixels).to(self.device)
-        with matmul_precision(PRECISION):
-            if not self.cfg.exact_maps:
-                packed = predict_maps(self.model, x, (hb, wb), compact=True)[0].cpu().numpy()
-            else:
-                class_map, heatmap = predict_maps(self.model, x, (hb, wb))
-                class_map, heatmap = class_map[0].to(torch.int32).cpu().numpy(), heatmap[0].cpu().numpy()
+        maps = [m[0] for m in self._maps(pixels, (hb, wb), not self.cfg.exact_maps)]
         if not self.cfg.exact_maps:
-            return image, *unpack_maps(packed, (w, h))
-        return image, *to_page_size(class_map, heatmap, (w, h))
+            return image, *unpack_maps(maps[0], (w, h))
+        return image, *to_page_size(*maps, (w, h))
 
     @torch.inference_mode()
     def packed_maps(self, pixels: np.ndarray) -> np.ndarray:
         """(B, 3, S, S) prepared pages -> their packed (B, 2, S, S) uint8 maps
         at model resolution: one forward and one copy to the host."""
-        x = torch.from_numpy(pixels).to(self.device)
-        with matmul_precision(PRECISION):
-            return predict_maps(self.model, x, x.shape[2:], compact=True).cpu().numpy()
+        return self._maps(pixels, pixels.shape[2:], True)[0]
 
     def predict_maps_batch(self, image_sources, group: int = 4):
         """Maps for N pages -> [(PIL image, class map, heatmap)], the
         document-serving path: ``group`` pages a forward, their packed maps
         back at model resolution (image_size², where the logits live: 128²
         for a 512² input) in one copy, resized to each page's size on the
-        host. A page's maps do not depend on its group mates.
+        host. A page's maps do not depend on its group mates, so the last
+        group, when short, is padded with zero pages to ``group`` (their
+        maps dropped), as the JAX package pads it to the compiled batch
+        shape: one graph serves every group.
 
         Region edges may move a few pixels against ``predict_maps``'s order
         (upsample to the page, then argmax); the post-process snaps every
@@ -115,7 +144,10 @@ class LayoutInference:
         out = []
         for g0 in range(0, len(prepared), group):
             part = prepared[g0 : g0 + group]
-            packed = self.packed_maps(np.concatenate([p[1] for p in part], axis=0))
+            pixels = np.concatenate([p[1] for p in part], axis=0)
+            if len(part) < group:
+                pixels = np.concatenate([pixels, np.zeros((group - len(part), *pixels.shape[1:]), pixels.dtype)])
+            packed = self.packed_maps(pixels)
             for (image, _, size), maps in zip(part, packed):
                 out.append((image, *unpack_maps(maps, size)))
         return out

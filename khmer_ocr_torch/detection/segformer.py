@@ -57,11 +57,53 @@ class SegFormerConfig:
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, *out_hw), half-pixel bilinear, antialiased
     where it shrinks: ``jax.image.resize(method="linear")``'s convention,
-    which scales its triangle kernel by the factor when downsampling."""
+    which scales its triangle kernel by the factor when downsampling.
+
+    An upsample of a CUDA tensor that takes a gradient goes through
+    ``_Upsample``: the same forward, and a backward without atomics, so
+    that a train step gives the same bits every run (and a captured step
+    those of the eager one). The CPU's backward is deterministic as it is."""
     h, w = x.shape[2:]
     out_hw = tuple(int(v) for v in out_hw)
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled() and out_hw[0] >= h and out_hw[1] >= w:
+        return _Upsample.apply(x, out_hw)
     return F.interpolate(x, size=out_hw, mode="bilinear", align_corners=False,
                          antialias=out_hw[0] < h or out_hw[1] < w)
+
+
+def upsample_matrix(n_out: int, n_in: int, device=None, dtype=torch.float32) -> torch.Tensor:
+    """(n_out, n_in): row o holds the two weights with which a half-pixel
+    bilinear upsample from ``n_in`` to ``n_out`` samples (``F.interpolate``,
+    ``align_corners=False``: source o' = (o + 0.5) * n_in / n_out - 0.5,
+    clamped at 0, the upper neighbour clamped at n_in - 1), made on
+    ``device`` from device operations alone (a capture can hold them)."""
+    scale = torch.full((), n_in, dtype=torch.float32, device=device) / n_out
+    src = (scale * (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) - 0.5).clamp_min(0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    upper = src - i0
+    m = torch.zeros(n_out, n_in, dtype=torch.float32, device=device)
+    m.scatter_add_(1, i0[:, None], (1 - upper)[:, None])
+    m.scatter_add_(1, (i0 + 1).clamp(max=n_in - 1)[:, None], upper[:, None])
+    return m.to(dtype)
+
+
+class _Upsample(torch.autograd.Function):
+    """``F.interpolate``'s half-pixel bilinear upsample, whose gradient is
+    the transposed interpolation, two matmuls with ``upsample_matrix``:
+    CUDA's own backward adds each output pixel's gradient into its four
+    sources with atomics, whose order (and so last bits) changes from run
+    to run."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw = tuple(x.shape[2:])
+        return F.interpolate(x, size=out_hw, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (hi, wi), (ho, wo) = ctx.in_hw, g.shape[2:]
+        mh, mw = upsample_matrix(ho, hi, g.device, g.dtype), upsample_matrix(wo, wi, g.device, g.dtype)
+        return torch.matmul(mh.t(), torch.matmul(g, mw)), None
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ generator so the loop runs without DocLayNet. The saved ``.npz`` has the JAX
 package's flat slash layout, so files cross between the two packages.
 
 ``finetune`` and ``main`` run on the CUDA card unless the caller asks for
-another device; without a card they raise.
+another device; without a card they raise. On the card each step replays
+the captured CUDA graph of its batch's key (detection/graphs.py), as the
+JAX package jits its step; on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from ..convert.from_jax import _unflatten, segformer_params_from_jax, segformer_params_to_jax
 from ..train.step import adam_update, step_scalars
+from .graphs import LayoutTrainGraphs, require_cuda
 from .segformer import BN_MOMENTUM, SegFormer, SegFormerConfig, _BatchNorm, resize_bilinear  # noqa: F401
 
 logger = logging.getLogger(__name__)
@@ -88,26 +91,51 @@ def segformer_loss(model: SegFormer, images: torch.Tensor, labels: torch.Tensor)
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
 
 
-def make_train_step(model: SegFormer, lr: float):
-    """-> step(images, labels) -> loss (a 0-d tensor left on the device).
+def step_body(model: SegFormer, opt_state: dict, images: torch.Tensor, labels: torch.Tensor,
+              scalars: torch.Tensor) -> torch.Tensor:
+    """One step that reads nothing on the host -> the loss (0-d, detached).
 
-    One step: train-mode forward, gradients of ``segformer_loss`` for every
-    parameter, Adam (optax's ``adam(lr)``: eps 1e-8 after the bias-corrected
-    square root) in place. The BatchNorm running pair is a buffer, not a
-    parameter: it takes the batch-statistics update of the forward and no
-    Adam step, as the JAX package re-inserts it."""
+    The forward in the model's mode (train mode: the decode head's
+    BatchNorm on batch statistics, its running pair moved in place),
+    gradients of ``segformer_loss`` for every parameter, Adam (optax's
+    ``adam``: eps 1e-8 after the bias-corrected square root) in place with
+    the learning rate and bias corrections of ``scalars``, a (1, 3) tensor
+    of ``train/step.py::step_scalars``. The BatchNorm running pair is a
+    buffer, not a parameter: it takes the batch-statistics update and no
+    Adam step, as the JAX package re-inserts it. ``opt_state["count"]`` is
+    the caller's to move (``step_scalars`` does), so that the body can be
+    captured (detection/graphs.py)."""
     params = list(model.parameters())
+    loss = segformer_loss(model, images, labels)
+    grads = torch.autograd.grad(loss, params)
+    adam_update(params, list(grads), opt_state, scalars[0, 0], scalars[0, 1:])
+    return loss.detach()
+
+
+def make_train_step(model: SegFormer, lr: float, *, graphs=None):
+    """-> step(images, labels) -> loss (a 0-d tensor left on the device);
+    ``step.opt_state``: Adam's state ({"mu", "nu": lists like the
+    parameters, "count": the steps taken}).
+
+    Each step puts the model in train mode, moves Adam's count on the host
+    (``step_scalars``) and runs ``step_body``: eagerly, or given ``graphs``
+    (a detection/graphs.py::LayoutTrainGraphs, on the card) as the replayed
+    CUDA graph of its batch's key, the counterpart of the JAX package's
+    jitted step. Given ``graphs``, CPU tensors raise ``ValueError``."""
+    params = list(model.parameters())
+    device = params[0].device
     opt_state = {"mu": [torch.zeros_like(p) for p in params], "nu": [torch.zeros_like(p) for p in params],
                  "count": 0}
 
     def step(images, labels):
         model.train()
-        loss = segformer_loss(model, images, labels)
-        grads = torch.autograd.grad(loss, params)
-        sc = step_scalars(opt_state, [lr], 0.9, 0.999, params[0].device)[0]
-        adam_update(params, list(grads), opt_state, sc[0], sc[1:])
-        return loss.detach()
+        if graphs is None:
+            return step_body(model, opt_state, images, labels, step_scalars(opt_state, [lr], 0.9, 0.999, device))
+        require_cuda("make_train_step(graphs=...)", images, labels)  # before Adam's count moves
+        return graphs.run(step_body, model, opt_state, images, labels,
+                          step_scalars(opt_state, [lr], 0.9, 0.999, device))
 
+    step.opt_state = opt_state
     return step
 
 
@@ -166,14 +194,16 @@ def finetune(model: SegFormer | None = None, cfg: SegFormerConfig | None = None,
     numpy batches, e.g. a real DocLayNet pipeline; by default the synthetic
     generator on ``RandomState(seed)``. lr 6e-5 is HF's semantic-segmentation
     fine-tune default. Losses stay on the device between log points. Each
-    step runs under ``detector.PRECISION``, the parity mode."""
+    step runs under ``detector.PRECISION``, the parity mode; on the card as
+    the replayed CUDA graph of its batch's key (detection/graphs.py, a cache
+    of this call's, freed when it returns), on the CPU eagerly."""
     from ..infer.predictor import resolve_device
     from ..precision import matmul_precision
     from .detector import PRECISION
 
     device = resolve_device(device)
     model = (model if model is not None else segformer_init(seed, cfg)).to(device)
-    step = make_train_step(model, lr)
+    step = make_train_step(model, lr, graphs=LayoutTrainGraphs() if device.type == "cuda" else None)
     if data_iter is None:
         rng = np.random.RandomState(seed)
 

@@ -31,6 +31,7 @@ graphs keep the train state and generator they were captured with: others
 drop every key. A capture or replay failure raises; nothing falls back to
 the eager body.
 
+``StepGraph`` serves the layout model's graphs too (detection/graphs.py).
 ``TrainGraphs`` is a ``GraphCache`` (decode/graphs.py): its owner (a
 ``train()`` call, or the caller of a step maker) holds it, so its buffers
 and graphs are freed with it, and it evicts the least recently used keys
@@ -57,6 +58,7 @@ captures = 0
 captured_steps = 0
 replays = 0
 replayed_steps = 0
+SCALARS = "_scalars"  # the step scalars' name among a graph's inputs
 
 
 def reset_counts() -> None:
@@ -82,33 +84,42 @@ def graph_key(step_key, stacked: dict, k: int) -> tuple:
 
 
 class StepGraph:
-    """The K steps of one key, captured. ``__init__`` runs the first batch
-    eagerly (its metrics are ``first``) and captures; ``replay`` runs a later
-    batch. ``nbytes``: its static buffers and what its capture added to
-    ``pool``; ``capture_s``: the seconds the eager steps and the capture took."""
+    """One key's work, captured: ``body(inputs) -> tuple of tensors`` over
+    static buffers on ``device`` made like ``inputs`` (a dict of tensors,
+    on the host or the device). ``__init__`` fills them, runs the body
+    once eagerly on the side stream of ``role`` and captures it there;
+    ``outputs`` are static tensors outside the pool that hold the eager
+    run's results until the first ``replay``, which copies other inputs
+    in and replays. ``generator``: the torch.Generator the body draws from,
+    registered with the graph so that each replay draws the next numbers
+    (None: the body draws nothing). ``counts``: the K1 and K1b launches of
+    one replay; ``nbytes``: the static buffers and what the capture added
+    to ``pool``; ``capture_s``: the seconds of the eager run and the
+    capture."""
 
-    def __init__(self, body, state, stacked: dict, generator, scalars: torch.Tensor, pool):
-        global captures, captured_steps
-        self.device = scalars.device
-        self.inputs = {k: torch.empty_like(v) for k, v in stacked.items()}
-        self.scalars = torch.empty_like(scalars)
-        self.loss = torch.empty(scalars.shape[0], device=self.device)
-        self.grad_norm = torch.empty_like(self.loss)
-        self._fill(stacked, scalars)
+    def __init__(self, body, inputs: dict, device: torch.device, pool, generator=None, role: str = "decode"):
+        self.device = device
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=device) for k, v in inputs.items()}
+        self._fill(inputs)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        current = torch.cuda.current_stream(self.device)
-        side = _side_stream(self.device)
+        current = torch.cuda.current_stream(device)
+        side = _side_stream(device, role)
         start.record(current)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self._run(body, state, generator)
-            self.first = (self.loss.clone(), self.grad_norm.clone())
+            first = body(self.inputs)
         current.wait_stream(side)
+        # made on the caller's stream, outside the pool; the capture's device sync comes before the eager
+        # results' memory is used again on the side stream
+        self.outputs = tuple(t.detach().clone() for t in first)
+        del first
         before, pool_before = _kernel_counts(), pool_bytes(pool)
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
+        if generator is not None:
+            self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph, pool=pool, stream=side, capture_error_mode="thread_local"):
-            self._run(body, state, generator)
+            for out, t in zip(self.outputs, body(self.inputs)):
+                out.copy_(t)
         # the capture launched nothing: its K1 and K1b counts move to each replay
         self.counts = tuple(a - b for a, b in zip(_kernel_counts(), before))
         _add_kernel_counts(tuple(-d for d in self.counts))
@@ -116,28 +127,18 @@ class StepGraph:
         end.synchronize()
         self.capture_s = start.elapsed_time(end) / 1e3
         self.pool_added = pool_bytes(pool) - pool_before
-        self.nbytes = tensor_bytes([self.inputs, self.scalars, self.loss, self.grad_norm]) + self.pool_added
-        captures += 1
-        captured_steps += scalars.shape[0]
+        self.nbytes = tensor_bytes([self.inputs, self.outputs]) + self.pool_added
 
-    def _fill(self, stacked: dict, scalars: torch.Tensor) -> None:
-        for k, v in stacked.items():
+    def _fill(self, inputs: dict) -> None:
+        for k, v in inputs.items():
             self.inputs[k].copy_(v, non_blocking=True)
-        self.scalars.copy_(scalars, non_blocking=True)
 
-    def _run(self, body, state, generator) -> None:
-        loss, grad_norm = body(state, self.inputs, generator, self.scalars)
-        self.loss.copy_(loss)
-        self.grad_norm.copy_(grad_norm)
-
-    def replay(self, stacked: dict, scalars: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        global replays, replayed_steps
-        self._fill(stacked, scalars)
+    def replay(self, inputs: dict) -> None:
+        """Copy ``inputs`` into the static buffers and replay on the current
+        stream; the results land in ``outputs``."""
+        self._fill(inputs)
         self.graph.replay()
         _add_kernel_counts(self.counts)
-        replays += 1
-        replayed_steps += self.loss.shape[0]
-        return self.loss.clone(), self.grad_norm.clone()
 
 
 class TrainGraphs(GraphCache):
@@ -149,25 +150,31 @@ class TrainGraphs(GraphCache):
         """``body(state, stacked, generator, scalars)`` through the graph of
         this key (``key``: the step's settings), captured at its first batch.
         -> (loss (K,), grad_norm (K,)), tensors of their own."""
+        global captures, captured_steps, replays, replayed_steps
         if not scalars.is_cuda or generator.device.type != "cuda":
             raise ValueError(f"TrainGraphs: the steps run on a CUDA device, got {scalars.device}")
         full = graph_key(key, stacked, scalars.shape[0])
         with self.lock:
+            # another train state or generator than the last drops every key (the graphs read and write the
+            # first ones' tensors)
             self.bind((tree_leaves(state.params)[0], state.opt_state["mu"], state.batch_stats, generator))
+            inputs = {**stacked, SCALARS: scalars}
             graph = self.shapes.get(full)
             if graph is not None:
                 self.shapes.move_to_end(full)
-                return graph.replay(stacked, scalars)
-            shapes = {k: tuple(v.shape[1:]) for k, v in stacked.items() if k in ("lines", "chunks", "labels")}
-            logger.info("capturing the train step for %s, %d step(s) a replay", shapes, scalars.shape[0])
-            graph = self.get(full, lambda: StepGraph(body, state, stacked, generator, scalars, self.pool()))
-            logger.info("captured in %.2f s; the pool grew by %.1f MiB", graph.capture_s, graph.pool_added / 2**20)
-            return graph.first
+                graph.replay(inputs)
+                replays += 1
+                replayed_steps += scalars.shape[0]
+            else:
+                shapes = {k: tuple(v.shape[1:]) for k, v in stacked.items() if k in ("lines", "chunks", "labels")}
+                logger.info("capturing the train step for %s, %d step(s) a replay", shapes, scalars.shape[0])
 
-    def bind(self, owner) -> None:
-        """Another train state or generator than the last drops every key
-        (the graphs read and write the first ones' tensors)."""
-        if self._params is None or len(owner) != len(self._params) or any(
-                a is not b for a, b in zip(owner, self._params)):
-            self.shapes.clear()
-            self._params, self._packed = owner, None
+                def run(inp):
+                    return body(state, {k: v for k, v in inp.items() if k != SCALARS}, generator, inp[SCALARS])
+
+                graph = self.get(full, lambda: StepGraph(run, inputs, scalars.device, self.pool(), generator))
+                captures += 1
+                captured_steps += scalars.shape[0]
+                logger.info("captured in %.2f s; the pool grew by %.1f MiB", graph.capture_s,
+                            graph.pool_added / 2**20)
+            return tuple(t.clone() for t in graph.outputs)

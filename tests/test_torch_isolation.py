@@ -32,7 +32,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "khmer_ocr_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*")
                     if p.suffix in (".py", ".cu", ".cuh", ".json") and "_build" not in p.parts) + [
-    "chip_smoke.py", "examples/probe_smem_torch.py", "examples/profile_torch_e2e.py", "examples/k1_routes_torch.py"]
+    "chip_smoke.py", "examples/probe_smem_torch.py", "examples/profile_torch_e2e.py", "examples/k1_routes_torch.py",
+    "examples/layout_determinism_torch.py"]
 IMPORTS_JAX = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
 
 RAISES = ("predictor_without_device", "recognize_without_device", "recognize_batch_without_device",
@@ -49,9 +50,9 @@ RAISES = ("predictor_without_device", "recognize_without_device", "recognize_bat
 
 _PAGE_PATH = ("import khmer_ocr_torch.detection.detector, khmer_ocr_torch.detection.cli, "
               "khmer_ocr_torch.detection.surya, khmer_ocr_torch.pipeline.engine, khmer_ocr_torch.pipeline.document, "
-              "khmer_ocr_torch.pipeline.pdf, khmer_ocr_torch.infer.standalone")
+              "khmer_ocr_torch.pipeline.pdf, khmer_ocr_torch.infer.standalone, khmer_ocr_torch.detection.graphs")
 _TRAINING = ("import khmer_ocr_torch.detection.train, khmer_ocr_torch.train.augment, khmer_ocr_torch.parallel.mesh, "
-             "khmer_ocr_torch.train.cli")
+             "khmer_ocr_torch.train.cli, khmer_ocr_torch.detection.graphs")
 _TENTH_SLICE = ("import khmer_ocr_torch.parallel.placement, khmer_ocr_torch.parallel.mesh, "
                 "khmer_ocr_torch.native.imageio, khmer_ocr_torch.preprocess, khmer_ocr_torch.infer.api, "
                 "khmer_ocr_torch.ops.kernels.decode_step, khmer_ocr_torch.decode.beam")
