@@ -124,9 +124,11 @@ def ffn(p: dict, x: torch.Tensor, drop=None, model_group=None) -> torch.Tensor:
     return _out_proj(p["lin2"], h, model_group)
 
 
-def encoder_layer(p: dict, num_heads: int, x: torch.Tensor, drop=None, model_group=None) -> torch.Tensor:
+def encoder_layer(p: dict, num_heads: int, x: torch.Tensor, drop=None, model_group=None,
+                  key_padding_mask=None) -> torch.Tensor:
     d = drop or _identity
-    x = layer_norm(p["ln1"], x + d(mha(p["self"], num_heads, x, x, drop=drop, model_group=model_group)))
+    sa = mha(p["self"], num_heads, x, x, key_padding_mask=key_padding_mask, drop=drop, model_group=model_group)
+    x = layer_norm(p["ln1"], x + d(sa))
     return layer_norm(p["ln2"], x + d(ffn(p, x, drop, model_group)))
 
 

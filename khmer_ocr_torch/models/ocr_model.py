@@ -155,7 +155,7 @@ def memory_kv(params: dict, memory) -> list:
             for lp in params["dec"]["layers"]]
 
 
-def init_decode_state(params: dict, memory, pad_mask, cfg: ModelConfig, lanes: int = 1,
+def init_decode_state(params: dict, memory, memory_pad_mask, cfg: ModelConfig, lanes: int = 1,
                       cache_len: int | None = None) -> dict:
     """Per-layer memory K/V (one copy per image, shared by its ``lanes``) and
     zeroed self-attention caches (B*lanes, cache_len, D), in the memory's
@@ -167,7 +167,7 @@ def init_decode_state(params: dict, memory, pad_mask, cfg: ModelConfig, lanes: i
     mem_kv = memory_kv(params, memory)
     self_kv = [(memory.new_zeros(b * lanes, n, mk.shape[-1]), memory.new_zeros(b * lanes, n, mk.shape[-1]))
                for mk, _ in mem_kv]
-    mem_valid = ~pad_mask
+    mem_valid = ~memory_pad_mask
     return {"mem_kv": mem_kv, "self_kv": self_kv, "mem_valid": mem_valid,
             "mem_valid_f": mem_valid.to(torch.float32).contiguous()}
 

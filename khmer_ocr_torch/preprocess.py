@@ -116,15 +116,20 @@ def otsu_threshold(arr: np.ndarray) -> int:
     return best
 
 
-def binarize_image(arr: np.ndarray) -> np.ndarray:
+def binarize_image(image):
     """The binarized evaluation variant: a 5x5 Gaussian blur, then Otsu's
-    threshold (255 above it, 0 elsewhere), on a uint8 (H, W) line, before
-    the resize. Equals OpenCV's ``GaussianBlur(arr, (5, 5), 0)`` and
-    ``threshold(..., THRESH_BINARY + THRESH_OTSU)`` bit for bit; where two
-    levels tie exactly for the largest variance, OpenCV's own code keeps the
-    first, as here, while an OpenCV build that hands Otsu to Intel IPP may
-    pick another."""
-    blurred = gaussian_blur5(arr)
+    threshold (255 above it, 0 elsewhere), on a line before the resize. A
+    PIL image gives a mode-L PIL image, as the JAX package's; a uint8 (H, W)
+    array gives an array. Equals OpenCV's ``GaussianBlur(arr, (5, 5), 0)``
+    and ``threshold(..., THRESH_BINARY + THRESH_OTSU)`` bit for bit; where
+    two levels tie exactly for the largest variance, OpenCV's own code keeps
+    the first, as here, while an OpenCV build that hands Otsu to Intel IPP
+    may pick another."""
+    if not isinstance(image, np.ndarray):
+        from PIL import Image
+
+        return Image.fromarray(binarize_image(np.asarray(image, dtype=np.uint8)))
+    blurred = gaussian_blur5(image)
     return np.where(blurred > otsu_threshold(blurred), 255, 0).astype(np.uint8)
 
 
@@ -159,7 +164,7 @@ def resize_line_u8(image, cfg: PreprocessConfig) -> np.ndarray:
     from PIL import Image
 
     if cfg.binarize:
-        image = Image.fromarray(binarize_image(np.asarray(image, dtype=np.uint8)))
+        image = binarize_image(image)
     new_width = max(cfg.min_width, int(cfg.img_height * (image.width / image.height)))
     image = image.resize((new_width, cfg.img_height), Image.Resampling.BILINEAR)
     return np.asarray(image, dtype=np.uint8)
@@ -234,12 +239,13 @@ class Preprocessor:
             from .native.imageio import load_resize_gray, resize_gray_mem
 
             if isinstance(src, (str, Path)):
-                line = load_resize_gray(src, cfg.img_height, cfg.min_width, self._cap_w())
+                line = load_resize_gray(src, cfg.img_height, cfg.min_width, self._cap_w(), as_uint8=True)
                 if line is not None:
                     return line
             else:
                 arr = _mem_array(src)
-                line = None if arr is None else resize_gray_mem(arr, cfg.img_height, cfg.min_width, self._cap_w())
+                line = None if arr is None else resize_gray_mem(arr, cfg.img_height, cfg.min_width, self._cap_w(),
+                                                                 as_uint8=True)
                 if line is not None:
                     return line
         return resize_line_u8(load_grayscale(src), cfg)

@@ -132,10 +132,10 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
           metrics_path=None, process_group=None, dispatch_group: int = 8):
     """Train the configured model on ``dataset``; returns the final
     TrainState. ``resume_from``: a checkpoint directory this loop saved
-    (params, statistics, moments and step restored; training continues with
-    the epoch after the one it closed). ``process_group``: train
-    data-parallel over the group, each rank on ``device`` (the batch size,
-    global, must divide among the ranks). ``dispatch_group``: K same-shape
+    (params, statistics, moments and step restored; training continues at
+    epoch ``step // steps_per_epoch + 1``, as the JAX package's does).
+    ``process_group``: train data-parallel over the group, each rank on
+    ``device`` (the batch size, global, must divide among the ranks). ``dispatch_group``: K same-shape
     batches dispatch as one group of K steps (1 turns grouping off), as the
     JAX package's ``train(dispatch_group=)``. Every step and eye test runs
     under ``config.runtime.matmul_precision``."""
@@ -162,8 +162,9 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
             raise ValueError(f"checkpoint config {ck_cfg} != model config {mcfg}")
         state = state_from(payload["params"], payload["batch_stats"], payload.get("opt_state"),
                            int(payload.get("step", 0)))
-        # the epoch the checkpoint closed: bucket tails make an epoch's steps vary
-        start_epoch = int(payload.get("epoch", state.step // steps_per_epoch)) + 1
+        # the JAX package's start epoch, from the step count; where bucket tails made an epoch longer than
+        # steps_per_epoch it skips epochs, as there. The payload's "epoch" is metadata only
+        start_epoch = state.step // steps_per_epoch + 1
         logger.info("resumed from %s at step %d (epoch %d)", resume_from, state.step, start_epoch)
     if process_group is not None:
         broadcast_(tree_leaves(state.params) + tree_leaves(state.batch_stats), process_group)
@@ -179,7 +180,7 @@ def train(dataset: LineDataset, config: OCRConfig | None = None, checkpoint_dir=
     max_label_len = min(tcfg.max_label_len, mcfg.decode_max_len + 1)
     pin = device.type == "cuda"
     sampler = np.random.default_rng(tcfg.seed)
-    for _ in range(1, start_epoch):  # a resumed run takes up the sampler where the finished epochs left it
+    for _ in range(1, start_epoch):  # a resumed run takes up the sampler where epochs 1 .. start - 1 leave it
         dataset.epoch_draws(sampler, sample_size)
     generator = torch.Generator(device=device)
 

@@ -127,25 +127,27 @@ if __name__ != "__main__":
 
     @pytest.mark.parametrize("i", range(len(IMAGES)), ids=[f"{m}{h}x{w}" for (h, w), m in IMAGES])
     def test_native_png_bit_exact_vs_pil(files, i):
-        got = native.load_resize_gray(files["paths"][i])
+        got = native.load_resize_gray(files["paths"][i], as_uint8=True)
         ref = pil_line(Image.open(files["paths"][i]))
         assert got is not None and got.shape == ref.shape
         np.testing.assert_array_equal(got, ref)
 
     def test_native_jpeg_within_one(files):
-        got = native.load_resize_gray(files["jpg"])
+        got = native.load_resize_gray(files["jpg"], as_uint8=True)
         ref = pil_line(Image.open(files["jpg"]))
         assert got.shape == ref.shape and np.abs(got.astype(int) - ref).max() <= 1
 
     def test_native_pixels_equal_the_jax_loader(files):
         for i, p in enumerate(files["paths"] + [files["jpg"]]):
-            np.testing.assert_array_equal(native.load_resize_gray(p), files["jax"][f"pixels_{i}"], err_msg=str(p))
+            np.testing.assert_array_equal(native.load_resize_gray(p, as_uint8=True), files["jax"][f"pixels_{i}"],
+                                          err_msg=str(p))
 
     @pytest.mark.parametrize("kind", ["arrays", "pil"])
     def test_native_memory_entry_equals_pil(files, kind):
         for src, p in zip(sources(kind, files["paths"]), files["paths"]):
             arr = src if isinstance(src, np.ndarray) else np.asarray(src.convert("L") if src.mode == "P" else src)
-            np.testing.assert_array_equal(native.resize_gray_mem(arr), pil_line(Image.open(p)), err_msg=str(p))
+            np.testing.assert_array_equal(native.resize_gray_mem(arr, as_uint8=True), pil_line(Image.open(p)),
+                                          err_msg=str(p))
 
     def _port_record(kind, workers, paths):
         pre = Preprocessor(PreprocessConfig(), RuntimeConfig(slab_cap_w=SLAB_CAP_W, host_workers=workers))
