@@ -40,6 +40,7 @@ import torch
 
 from ..models.ocr_model import EXIT_CHECK_EVERY, decode_windows, memory_kv, pack_decode_params
 from ..ops.kernels import decode_step
+from ..profiling import span
 
 # The share of the card's memory a GraphCache's shapes may hold unless its
 # owner sets a budget. One shape holds its self caches, 2 layers x 2 x rows
@@ -88,7 +89,9 @@ def run_chunks(max_len: int, cache_len: int, finished, run, every: int = EXIT_CH
     device. Returns the steps run."""
     pos = 0
     for w, start, n in step_chunks(max_len, every):
-        if finished():
+        with span("khmer_ocr.decode.exit_test"):
+            done = finished()
+        if done:
             break
         if start + n > min(w, cache_len):
             raise ValueError(f"decode: position {start + n - 1} outside the window {w} or the caches' {cache_len} "
@@ -176,7 +179,7 @@ class StepGraphs:
         state."""
         todo = [c for c in step_chunks(max_len) if (c[0], c[2]) not in self.graphs]
         if todo:
-            with lock or contextlib.nullcontext():
+            with lock or contextlib.nullcontext(), span("khmer_ocr.decode.capture"):
                 self._capture(todo, inputs, pool)
         self.fill(*inputs)
 

@@ -28,6 +28,7 @@ import torch
 from ..decode.graphs import GraphCache, precision_key, tensor_bytes
 from ..models import bilstm
 from ..ops.kernels import lstm
+from ..profiling import span
 
 # the largest shape whose encode is captured: rows x chunks a row (8 rows of 8 chunks, one row of 64)
 MAX_CHUNKS = 64
@@ -60,8 +61,9 @@ class EncodeGraph:
         self.lines, self.counts = lines.clone(), counts.clone()
         k1 = lstm.launches
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=torch.cuda.current_stream(self.device),
-                              capture_error_mode="thread_local"):
+        with span("khmer_ocr.encode.capture"), \
+                torch.cuda.graph(self.graph, stream=torch.cuda.current_stream(self.device),
+                                 capture_error_mode="thread_local"):
             self.memory, self.pad = encode(self.lines, self.counts)
         self.k1 = lstm.launches - k1  # the capture launched nothing: its K1 count moves to each replay
         lstm.launches = k1

@@ -41,7 +41,12 @@ a slot); ``Predictor.max_batches_in_flight`` is the high-water mark of the
 last call. The JAX package dispatches groups of ``max_inflight_batches``
 batches; the port forms no groups and dispatches each batch once it is
 prepared. An exception in either stage is raised in the caller once the
-dispatch thread has ended.
+dispatch thread has ended. Under a torch.profiler session each stage is a
+span (profiling.py::span): on the caller's thread ``khmer_ocr.predict``
+around the call, ``khmer_ocr.wait_dispatch``, ``khmer_ocr.decode``,
+``khmer_ocr.drain`` and ``khmer_ocr.join``, which do not overlap; on the
+dispatch thread ``khmer_ocr.prepare``, ``khmer_ocr.wait_slot`` and
+``khmer_ocr.dispatch``.
 
 The serving speed mode: ``RuntimeConfig.compute_dtype="bfloat16"`` casts the
 params to bfloat16 (the BatchNorm statistics stay float32), so activations,
@@ -73,6 +78,7 @@ from ..models.ocr_model import encode
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
 from ..parallel.mesh import data_shard, gather_rows, world_of
 from ..precision import check_nesting, check_precision, matmul_precision
+from ..profiling import span
 from ..preprocess import PreparedBatch, Preprocessor
 from ..tokenizer import Tokenizer
 from . import encode_graph
@@ -369,7 +375,8 @@ class Predictor:
         capture lock is held throughout, so that none of these launches
         lands inside a capture of the decode's, nor one of the decode's in
         an encode's capture."""
-        with matmul_precision(self.config.runtime.matmul_precision), self.graph_cache.capture_lock:
+        with span("khmer_ocr.dispatch"), matmul_precision(self.config.runtime.matmul_precision), \
+                self.graph_cache.capture_lock:
             lines, counts, b = self._to_device_batch(batch)
             encode = lambda l, c: encode_batch(self.params, l, c, self.model_cfg, self._chunk_geom)  # noqa: E731
             if self._encode_stream is None or lines.shape[0] * batch.bucket_n > encode_graph.MAX_CHUNKS:
@@ -392,9 +399,14 @@ class Predictor:
                 else contextlib.nullcontext()
             with contextlib.closing(self.preprocessor.iter_batches(image_list, max_batch=batch_size)) as batches, \
                     torch.inference_mode(), on_stream:
-                for batch in batches:
-                    if not flight.take_slot():
+                while True:
+                    with span("khmer_ocr.prepare"):
+                        batch = next(batches, None)
+                    if batch is None:
                         break
+                    with span("khmer_ocr.wait_slot"):
+                        if not flight.take_slot():
+                            break
                     flight.ready.put(self._dispatch(batch))
         except BaseException as e:  # raised again in the caller
             last = e
@@ -407,66 +419,72 @@ class Predictor:
         (batch, tokens, the event after the copy or None, the item, held
         until the batch drains, since the decode reads its memory)."""
         batch, b, lines, counts, memory, pad, event = item
-        if event is not None:
-            torch.cuda.current_stream(self.device).wait_event(event)
-        stats: dict = {}
-        with matmul_precision(self.config.runtime.matmul_precision):
-            tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom, stats=stats,
-                                 eager=self.eager_decode, graph_cache=self.graph_cache, encoded=(memory, pad))
-        if self._world > 1:
-            tokens = gather_rows(tokens, self.group)
-        self._add_stats(stats)
-        tokens, done = tokens[:b], None
-        if tokens.is_cuda:
-            host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
-            host.copy_(tokens, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            tokens = host
+        with span("khmer_ocr.decode"):
+            if event is not None:
+                torch.cuda.current_stream(self.device).wait_event(event)
+            stats: dict = {}
+            with matmul_precision(self.config.runtime.matmul_precision):
+                tokens = infer_batch(self.params, lines, counts, self.model_cfg, dec_cfg, self._chunk_geom,
+                                     stats=stats, eager=self.eager_decode, graph_cache=self.graph_cache,
+                                     encoded=(memory, pad))
+            if self._world > 1:
+                tokens = gather_rows(tokens, self.group)
+            self._add_stats(stats)
+            tokens, done = tokens[:b], None
+            if tokens.is_cuda:
+                host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+                host.copy_(tokens, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                tokens = host
         return batch, tokens, done, item
 
     @staticmethod
     def _drain(entry: tuple, results: list, flight: InFlight) -> None:
         batch, tokens, done, _ = entry
-        if done is not None:
-            done.synchronize()
-        for idx, row in zip(batch.indices, tokens.numpy().copy()):
-            results[idx] = row
+        with span("khmer_ocr.drain"):
+            if done is not None:
+                done.synchronize()
+            for idx, row in zip(batch.indices, tokens.numpy().copy()):
+                results[idx] = row
         flight.release()
 
     def predict_batch_tokens(self, image_list: list, beam_width: int = 1, batch_size: int = 8,
                              max_len: int | None = None) -> list[np.ndarray]:
         """Token rows (with <sos>, <eos> and trailing <pad>) in input order,
         through the in-flight pipeline (module docstring)."""
-        rt = self.config.runtime
-        check_nesting(rt.matmul_precision)  # the dispatch thread's scope would wait for this thread's other one
-        dec_cfg = self._dec_cfg(beam_width, max_len)
-        flight = InFlight(2 * max(1, rt.max_inflight_batches))
-        results: list = [None] * len(image_list)
-        decoded: deque = deque()
-        worker = threading.Thread(target=self._dispatch_stage, args=(image_list, batch_size, flight),
-                                  name="khmer-ocr-dispatch", daemon=True)
-        worker.start()
-        try:
-            with torch.inference_mode():
-                while True:
-                    # drain the oldest when the dispatch stage waits for a slot or nothing else is ready
-                    if decoded and (flight.full() or flight.ready.empty()):
+        with span("khmer_ocr.predict"):
+            rt = self.config.runtime
+            check_nesting(rt.matmul_precision)  # the dispatch thread's scope would wait for this thread's other one
+            dec_cfg = self._dec_cfg(beam_width, max_len)
+            flight = InFlight(2 * max(1, rt.max_inflight_batches))
+            results: list = [None] * len(image_list)
+            decoded: deque = deque()
+            worker = threading.Thread(target=self._dispatch_stage, args=(image_list, batch_size, flight),
+                                      name="khmer-ocr-dispatch", daemon=True)
+            worker.start()
+            try:
+                with torch.inference_mode():
+                    while True:
+                        # drain the oldest when the dispatch stage waits for a slot or nothing else is ready
+                        if decoded and (flight.full() or flight.ready.empty()):
+                            self._drain(decoded.popleft(), results, flight)
+                            continue
+                        with span("khmer_ocr.wait_dispatch"):
+                            item = flight.ready.get()
+                        if item is _DONE:
+                            break
+                        if isinstance(item, BaseException):
+                            raise item
+                        decoded.append(self._decode_dispatched(item, dec_cfg))
+                    while decoded:
                         self._drain(decoded.popleft(), results, flight)
-                        continue
-                    item = flight.ready.get()
-                    if item is _DONE:
-                        break
-                    if isinstance(item, BaseException):
-                        raise item
-                    decoded.append(self._decode_dispatched(item, dec_cfg))
-                while decoded:
-                    self._drain(decoded.popleft(), results, flight)
-        finally:
-            flight.stop.set()
-            worker.join()
-            self.max_batches_in_flight = flight.high
-        return results
+            finally:
+                flight.stop.set()
+                with span("khmer_ocr.join"):
+                    worker.join()
+                self.max_batches_in_flight = flight.high
+            return results
 
     def predict_batch(self, image_list: list, beam_width: int = 1, batch_size: int = 8,
                       max_len: int | None = None) -> list[str]:

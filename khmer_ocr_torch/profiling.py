@@ -1,9 +1,21 @@
 """The card's activity under torch.profiler: one measure of its busy time for
-chip_smoke.py and examples/profile_torch_e2e.py, and the profiler that
-utils/profiling.py::profile_trace writes its traces with.
+chip_smoke.py and examples/profile_torch_e2e.py, the profiler that
+utils/profiling.py::profile_trace writes its traces with, and the spans the
+program marks its layers with.
 
     events, wall_ms = device_events(fn)
     busy = busy_ms(events)   # the union of the kernel, copy and set intervals
+
+    with span("khmer_ocr.decode"):   # a torch.profiler range while a profiler runs
+        ...
+
+A span is a ``record_function`` range while any torch.profiler session runs
+in the process, so it lies on the profiler's clock beside the card's kernels,
+copies and runtime calls. With no profiler it is one shared no-op: it reads
+``torch.autograd.profiler._is_profiler_enabled``, a process-wide flag (a
+``record_function`` costs some 12 us to enter and leave even then). The
+program's spans (all named ``khmer_ocr.*``) sit at its layer boundaries,
+never in a loop over lines nor inside a body captured into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,6 +27,21 @@ import time
 from pathlib import Path
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_OFF = contextlib.nullcontext()
+_autograd_profiler = None  # torch.autograd.profiler, bound at the first span: importing this module loads no torch
+
+
+def span(name: str):
+    """A context manager: ``torch.profiler.record_function(name)`` while a
+    torch.profiler session runs, else a shared no-op."""
+    global _autograd_profiler
+    if _autograd_profiler is None:
+        import torch.autograd.profiler
+
+        _autograd_profiler = torch.autograd.profiler
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _autograd_profiler.record_function(name)
 
 
 def union_us(intervals) -> float:
@@ -31,14 +58,20 @@ def union_us(intervals) -> float:
 @contextlib.contextmanager
 def profiler(trace: Path | None = None):
     """torch.profiler over the block, on the host and on the card where there
-    is one; yields the profiler, and writes its chrome trace to ``trace``
+    is one, the host's ops and spans on every thread (where the installed
+    torch can; by default it records those of the thread that started it
+    alone); yields the profiler, and writes its chrome trace to ``trace``
     when the block ends, if given."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    try:
+        every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:  # a torch without the option
+        every_thread = None
+    with torch.profiler.profile(activities=acts, experimental_config=every_thread) as prof:
         yield prof
     if trace is not None:
         prof.export_chrome_trace(str(trace))

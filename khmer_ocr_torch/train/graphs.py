@@ -48,6 +48,7 @@ import torch
 from ..decode.graphs import GraphCache, _side_stream, precision_key, tensor_bytes
 from ..infer.encode_graph import pool_bytes
 from ..ops.kernels import lstm, lstm_backward
+from ..profiling import span
 from .step import tree_leaves
 
 logger = logging.getLogger(__name__)
@@ -172,7 +173,8 @@ class TrainGraphs(GraphCache):
                 def run(inp):
                     return body(state, {k: v for k, v in inp.items() if k != SCALARS}, generator, inp[SCALARS])
 
-                graph = self.get(full, lambda: StepGraph(run, inputs, scalars.device, self.pool(), generator))
+                with span("khmer_ocr.train.capture"):
+                    graph = self.get(full, lambda: StepGraph(run, inputs, scalars.device, self.pool(), generator))
                 captures += 1
                 captured_steps += scalars.shape[0]
                 logger.info("captured in %.2f s; the pool grew by %.1f MiB", graph.capture_s,

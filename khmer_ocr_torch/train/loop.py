@@ -53,6 +53,7 @@ import torch
 from ..config import OCRConfig
 from ..infer.predictor import resolve_device
 from ..parallel.mesh import broadcast_, data_shard, world_of
+from ..profiling import span
 from ..tokenizer import Tokenizer
 from .checkpoint import load_checkpoint_full, save_checkpoint
 from .data import LineDataset
@@ -66,14 +67,21 @@ logger = logging.getLogger(__name__)
 
 def _prefetched(gen, depth: int = 2):
     """Run a generator on a background thread behind a bounded queue, so
-    that host-side batch assembly overlaps the device's steps."""
+    that host-side batch assembly overlaps the device's steps. Spans: each
+    item's assembly on that thread (``khmer_ocr.train.assemble``), each
+    wait for the next item here (``khmer_ocr.train.wait_batch``)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
     done = object()
 
     def worker():
         try:
-            for item in gen:
+            it = iter(gen)
+            while True:
+                with span("khmer_ocr.train.assemble"):
+                    item = next(it, done)
+                if item is done:
+                    break
                 q.put(item)
         except BaseException as e:  # re-raised on the consumer side
             err.append(e)
@@ -82,7 +90,11 @@ def _prefetched(gen, depth: int = 2):
 
     t = threading.Thread(target=worker, name="khmer-train-prefetch", daemon=True)
     t.start()
-    while (item := q.get()) is not done:
+    while True:
+        with span("khmer_ocr.train.wait_batch"):
+            item = q.get()
+        if item is done:
+            break
         yield item
     t.join()
     if err:

@@ -50,6 +50,7 @@ from ..models.ocr_model import forward_train, init_model
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
 from ..parallel.mesh import all_reduce_sum_
 from ..precision import check_precision, matmul_precision
+from ..profiling import span
 from .device_augment import augment_lines
 
 ADAM_EPS = 1e-8
@@ -228,7 +229,7 @@ def _make_steps(model_cfg, chunk_geom, augment_prob, b1, b2, group, precision, g
 
     def run(state: TrainState, stacked: dict, generator, lrs):
         device = tree_leaves(state.params)[0].device
-        with matmul_precision(precision):
+        with span("khmer_ocr.train.step"), matmul_precision(precision):
             scalars = step_scalars(state.opt_state, lrs, b1, b2, device)
             if graphs is None:
                 loss, norm = body(state, stacked, generator, scalars)
