@@ -8,8 +8,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      whether Pillow, OpenCV and safetensors import there (nothing needs them);
   2. build: the CUDA kernels from khmer_ocr_torch/csrc with nvcc (sm_90a),
      one nvcc each, all at once (K2, its tensor-parallel blocks and K3 once
-     per storage type, float32 and bf16, and K2's second float32 library,
-     bounded for two CTAs an SM);
+     per storage type, float32 and bf16, K2's second float32 library,
+     bounded for two CTAs an SM, and K5);
   3. K1 (LSTM recurrence) against its plain version and cuDNN's nn.LSTM at
      H=192, one direction and two stacked directions, (B, T) in {(1, 4096),
      (8, 1024), (256, 256)}: both routes (thread-block clusters, one CTA per
@@ -36,6 +36,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      beam-3, Tm=128, max_len 64 cases of 8 and 64 images run both routes.
      Tokens equal (near-ties excepted), scores within 1e-4 x max(1, |ref|);
      timed beside the step loop (K2, replayed as CUDA graphs) on the same inputs;
+  5b. K5 (the beam search's step, one CTA of a warp a lane for each image)
+     against its plain version (log_softmax + beam_advance) at 8 and 64
+     images x 3 lanes, V 124, at positions 0, 31 and 63 of a search on
+     random logits: on log-probs every output bit-equal, on logits the
+     tokens, lineage and best tokens equal and the scores' gap reported;
+     timed from a replayed CUDA graph beside the plain version; the 64-step
+     decode of K3's 8 x 3 and 64 x 3 rows by the step loop's graphs with K5
+     and with the plain search, in turns; the flagship's 64 real lines
+     served with each, K5 launched once a replayed step;
   6. K4 (dynamic shared memory probe): the probe's answer equals the device
      attribute within 1 KB, the next size is refused, row 0 equals the plain
      version; one empty launch and synchronise is timed as its floor;
@@ -193,6 +202,7 @@ float32 peak of 67 TFLOP/s (H100 SXM data sheet).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -664,12 +674,13 @@ class PlainPath:
         import khmer_ocr_torch.decode.beam as bm
         import khmer_ocr_torch.models.bilstm as bl
         import khmer_ocr_torch.models.ocr_model as om
-        from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm
+        from khmer_ocr_torch.ops.kernels import beam_step, decode_loop, decode_step, lstm
 
-        self._saved = (bl.lstm_recurrence, om.decoder_layer_step, bm.fused_beam_decode)
+        self._saved = (bl.lstm_recurrence, om.decoder_layer_step, bm.fused_beam_decode, bm.search_step)
         bl.lstm_recurrence = lstm.lstm_recurrence_plain
         om.decoder_layer_step = decode_step.decoder_layer_step_plain
         bm.fused_beam_decode = decode_loop.fused_beam_decode_plain
+        bm.search_step = beam_step.search_step_plain
         return self
 
     def __exit__(self, *exc):
@@ -677,7 +688,27 @@ class PlainPath:
         import khmer_ocr_torch.models.bilstm as bl
         import khmer_ocr_torch.models.ocr_model as om
 
-        bl.lstm_recurrence, om.decoder_layer_step, bm.fused_beam_decode = self._saved
+        bl.lstm_recurrence, om.decoder_layer_step, bm.fused_beam_decode, bm.search_step = self._saved
+        return False
+
+
+class PlainSearch:
+    """Within this block the beam search's bookkeeping runs as the plain
+    version's torch ops (log_softmax, beam_advance) on the card instead of
+    kernel K5; the decode's graphs key on it, so each path keeps its own."""
+
+    def __enter__(self):
+        import khmer_ocr_torch.decode.beam as bm
+        from khmer_ocr_torch.ops.kernels import beam_step
+
+        self._saved = bm.search_step
+        bm.search_step = beam_step.search_step_plain
+        return self
+
+    def __exit__(self, *exc):
+        import khmer_ocr_torch.decode.beam as bm
+
+        bm.search_step = self._saved
         return False
 
 
@@ -810,6 +841,163 @@ def phase_k3(torch, params, cfg):
               f"({n_diff} near-ties), scores max|diff| {err:.2e}; kernel {ms:.3f} ms{also}, plain {plain_ms:.3f} ms, "
               f"step loop (K2 graphs) {host_ms:.3f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
     return rows, worst, resident[True]
+
+
+def k5_cost(n_img, k, v, lp, c) -> tuple[int, int]:
+    """Bytes and operations of one K5 launch: the logits read, the tokens and
+    lineage read and written, the running scores read and written, the best
+    score read, the position and a length denominator; per logit the
+    log-softmax's max, subtract, exp and add and one compare a top-K pass,
+    per candidate the add and compare of each next-beam pass."""
+    nbytes = 4 * n_img * k * v + 2 * 8 * n_img * k * lp + 2 * 4 * n_img * k * c + 4 * (2 * n_img * k + n_img + 2)
+    return nbytes, n_img * k * v * (4 + k) + n_img * k * k * (2 * k + 2)
+
+
+def k5_agree(torch, label, st, x, dec, log_probs) -> dict:
+    """K5 and the plain version from copies of one state: tokens, lineage
+    (the parents at slot pos among them) and best tokens must be equal;
+    returns the scores' and best scores' max |diff| (0 required on
+    log-probs: the same f32 adds and divides)."""
+    from khmer_ocr_torch.ops.kernels import beam_step
+
+    got, ref = ({key: t.clone() for key, t in st.items()} for _ in range(2))
+    beam_step.search_step_kernel(got, x, got["pos"], dec, log_probs=log_probs)
+    beam_step.search_step_plain(ref, x, ref["pos"], dec, log_probs=log_probs)
+    torch.cuda.synchronize()
+    for key in ("tokens", "lineage", "best_done_tokens"):
+        if not torch.equal(got[key], ref[key]):
+            rows = (got[key] != ref[key]).reshape(got[key].shape[0], -1).any(1).nonzero().flatten().tolist()
+            fail(f"K5 {label}: {key} differ from the plain version's in images {rows}")
+    err = {key: (got[key] - ref[key]).abs().max().item() for key in ("scores", "best_done_score")}
+    if log_probs and any(err.values()):
+        fail(f"K5 {label}, on log-probs: scores differ from the plain version's by {err}")
+    return err
+
+
+def phase_beam_step(torch, params, cfg, smi):
+    """K5 (the beam search's step, csrc/beam_step.cu) against its plain
+    version (log_softmax + beam_advance) at 8 x 3 and 64 x 3 lanes, V 124,
+    max_len 64, at positions 0, 31 and 63 of a search driven by random
+    logits with a growing <eos> bias: on log-probs (the fused head's input)
+    every output bit-equal, on logits the tokens, lineage and best tokens
+    equal and the scores' gap reported (at position 0 the new scores are
+    lane 0's top-3 log-probs: the log-softmax's gap from torch's). Its
+    device time from a replayed CUDA graph beside the plain version's, its
+    bound and share; the 64-step decode of phase_k3 (seeded flagship
+    decoder, Tm 128) by the step loop's graphs with K5 and with the plain
+    search, in turns, tokens equal (near-ties excepted); the flagship's 64
+    real lines served with each, K5 launched once a replayed step."""
+    import dataclasses
+
+    from khmer_ocr_torch.config import DecodeConfig
+    from khmer_ocr_torch.decode import graphs
+    from khmer_ocr_torch.decode.beam import beam_decode, beam_state
+    from khmer_ocr_torch.infer.predictor import Predictor
+    from khmer_ocr_torch.ops.kernels import beam_step, build
+
+    lib = build.load("beam_step")
+    lib.beam_step_smem_bytes.argtypes = [ctypes.c_int] * 3
+    if lib.beam_step_smem_bytes(3, 66, 64) != beam_step.smem_bytes(3, 66, 64) \
+            or lib.beam_step_max_lanes() != beam_step.MAX_LANES:
+        fail("K5: the library's shared memory or lane limit differs from ops/kernels/beam_step.py's")
+    k, v, max_len = 3, cfg.vocab_size, 64
+    dec = DecodeConfig(beam_width=k, max_len=max_len)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, out = [], {"smi": smi}
+    with torch.inference_mode():
+        for n_img in (8, 64):
+            st = beam_state(n_img, k, max_len, dec, "cuda")
+            errs = {}
+            for pos in range(max_len):
+                logits = torch.randn(n_img * k, v, device="cuda", generator=gen) * 3.0
+                logits[:, dec.eos_idx] += pos / 16.0  # completions grow likelier along the search
+                logp = torch.log_softmax(logits, dim=-1)
+                if pos in (0, 31, 63):
+                    label = f"{n_img}x{k} V={v} pos={pos}"
+                    k5_agree(torch, label, st, logp, dec, True)
+                    errs[pos] = k5_agree(torch, label, st, logits, dec, False)
+                    print(f"[beam_step] {label}: on log-probs every output bit-equal to the plain version; on logits "
+                          f"tokens, lineage and best tokens equal, scores max|diff| {errs[pos]['scores']:.3e}, best "
+                          f"scores {errs[pos]['best_done_score']:.3e}"
+                          + (" (lane 0's top-3 log-probs against torch.log_softmax's)" if pos == 0 else ""))
+                beam_step.search_step_plain(st, logits, st["pos"], dec, log_probs=False)
+                st["pos"].add_(1)
+            done = int((st["best_done_score"] > -1e29).sum())
+            # device time at position 31 (the launch rewrites its own state: the same work every replay)
+            st["pos"].fill_(31)
+            logits = torch.randn(n_img * k, v, device="cuda", generator=gen) * 3.0
+            kst = {key: t.clone() for key, t in st.items()}
+            pst = {key: t.clone() for key, t in st.items()}
+            ms = graph_ms(torch, lambda: beam_step.search_step_kernel(kst, logits, kst["pos"], dec, log_probs=False))
+            plain_ms = graph_ms(torch, lambda: beam_step.search_step_plain(pst, logits, pst["pos"], dec,
+                                                                           log_probs=False))
+            call_ms = cuda_ms(torch, lambda: beam_step.search_step_kernel(kst, logits, kst["pos"], dec,
+                                                                         log_probs=False), 50)
+            bms, by = bound_ms(*k5_cost(n_img, k, v, max_len + 2, max_len))
+            rows.append(dict(shape=f"{n_img}x{k} V={v} max_len={max_len}", ms=ms, plain_ms=plain_ms, call_ms=call_ms,
+                             library_ms=None, bound_ms=bms, bound_by=by, log_prob_gap=errs[0]["scores"],
+                             score_gap=max(e["scores"] for e in errs.values()), completed_images=done))
+            print(f"[beam_step] {n_img}x{k} V={v} max_len={max_len}: {done}/{n_img} images completed by step 63; K5 "
+                  f"{ms:.4f} ms (a replayed graph; {call_ms:.4f} ms a call from Python), plain {plain_ms:.4f} ms, "
+                  f"bound {bms:.6f} ms ({by}), {bms / ms:.2%} of roofline, on {smi}")
+
+        # the 64-step decode of phase_k3's 8 x 3 and 64 x 3, Tm 128 rows, by the step loop's graphs
+        d = cfg.emb_dim
+        cache = graphs.GraphCache()
+        step_loop = {}
+        for n_img in (8, 64):
+            memory = torch.randn(n_img, 128, d, device="cuda", generator=gen) * 0.5
+            valid_len = torch.randint(1, 129, (n_img,), device="cuda", generator=gen)
+            pad = torch.arange(128, device="cuda")[None, :] >= valid_len[:, None]
+            ddec = dataclasses.replace(dec, mega_mode="0")
+            run = lambda: beam_decode(params, memory, pad, cfg, ddec, graph_cache=cache)
+            times, toks = {"k5": [], "plain": []}, {}
+            for path in ("k5", "plain", "plain", "k5"):
+                with PlainSearch() if path == "plain" else contextlib.nullcontext():
+                    toks[path] = run()  # the shape's graphs captured at its first call
+                    times[path].append(cuda_ms(torch, run, 2))
+            differ = [i for i in range(n_img) if not torch.equal(toks["k5"][i], toks["plain"][i])]
+            for i in differ:
+                a, b = (strip(toks[pth][i].tolist()) for pth in ("plain", "k5"))
+                s_ref, s_got = (memory_score(torch, params, cfg, memory[i:i + 1], pad[i:i + 1],
+                                             torch.tensor(t, device="cuda")) for t in (a, b))
+                print(f"[beam_step] step loop {n_img}x{k}: image {i} differs: {a} vs {b}; scores {s_ref:.7f} vs "
+                      f"{s_got:.7f}")
+                if not abs(s_ref - s_got) < NEAR_TIE:
+                    fail(f"K5 step loop {n_img}x{k}: image {i} differs from the plain search and is not a near-tie")
+            step_loop[f"{n_img}x{k}"] = dict(k5_ms=times["k5"], plain_ms=times["plain"], images_differing=len(differ))
+            print(f"[beam_step] 64-step decode {n_img}x{k} Tm=128 by the step loop's graphs: with K5 "
+                  f"{fmt_gaps(times['k5'])} ms, with the plain search {fmt_gaps(times['plain'])} ms (in turns); "
+                  f"{n_img - len(differ)}/{n_img} images token-equal on {smi}")
+        del cache
+    out.update(rows=rows, step_loop=step_loop)
+
+    # the flagship's 64 real lines: K5 once a replayed step, strings as JAX's, lines/s with each search
+    assets = ROOT / "khmer_ocr_torch" / "assets"
+    meta = json.loads((assets / "real_lines.json").read_text())
+    lines = [line for line, _ in real_samples(len(meta["texts"]))]
+    bw, max_len, bs = (meta["recipe"][key] for key in ("beam_width", "max_len", "batch_size"))
+    pred = Predictor(model_path=FLAGSHIP)
+    walls = {"k5": [], "plain": []}
+    for path in ("k5", "plain", "plain", "k5"):
+        with PlainSearch() if path == "plain" else contextlib.nullcontext():
+            pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
+            got, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
+        walls[path].append(wall * 1e3)
+        strings = [pred.tokenizer.decode(r) for r in got]
+        equal = sum(a == b for a, b in zip(strings, meta["strings"]))
+        want_k5 = c["replayed_steps"] if path == "k5" else 0
+        if c["k5"] != want_k5 or c["eager_steps"] or c["captures"] or equal != len(lines):
+            fail(f"K5 serving, {path} search: K5 launches {c['k5']} against {want_k5} ({c['replayed_steps']} "
+                 f"replayed steps), {c['eager_steps']} steps by the Python loop, {c['captures']} captures; "
+                 f"{equal}/{len(lines)} strings equal to JAX's")
+        out[f"serve_{path}"] = c
+    print(f"[beam_step] the flagship's {len(lines)} real lines, beam {bw}, batch {bs}: K5 {fmt_gaps(walls['k5'])} ms, "
+          f"the plain search {fmt_gaps(walls['plain'])} ms (in turns); K5 launched {out['serve_k5']['k5']} times in "
+          f"{out['serve_k5']['replayed_steps']} replayed steps; strings equal to JAX's on {smi}")
+    out["serve_walls_ms"] = walls
+    del pred
+    return out
 
 
 def phase_k4(torch):
@@ -1889,9 +2077,9 @@ def counted_run(torch, pred, lines, bw, bs, max_len):
     (decode/graphs.py); the counts also hold the decode's graph captures and
     replays and the steps the Python loop ran on the card."""
     from khmer_ocr_torch.decode import graphs
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, smem_probe
+    from khmer_ocr_torch.ops.kernels import beam_step, decode_loop, decode_step, lstm, smem_probe
 
-    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe}
+    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe, "k5": beam_step}
     torch.cuda.synchronize()
     for mod in kernels.values():
         mod.reset_launches()
@@ -1915,8 +2103,9 @@ def check_run(cfg, rows, counts, want: dict, label: str, tag: str = "e2e") -> li
     import numpy as np
 
     want = {"eager_steps": 0, "replayed_steps": counts["steps"], **want}
-    print(f"[{tag}] {label}: launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']} "
-          f"(expected {want['k1']}, {want['k2']}, {want['k3']}); {counts['steps']} decode steps "
+    print(f"[{tag}] {label}: launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}, K5 {counts['k5']} "
+          f"(expected {want['k1']}, {want['k2']}, {want['k3']}, {want.get('k5', 'any')}); {counts['steps']} decode "
+          f"steps "
           f"({counts['replays']} graph replays, {counts['eager_steps']} steps by the Python loop), "
           f"{counts['mega']} whole-decode batches")
     if any(counts[k] != v for k, v in want.items()) or counts["k4"]:
@@ -1983,7 +2172,8 @@ def phase_e2e(torch, gpu_name, smi):
         label = f"beam {bw}, max_len {max_len}"
         print(f"[e2e] {label}: {len(lines)} lines in {n_batches} batches, {wall * 1e3:.1f} ms "
               f"({len(lines) / wall:.1f} lines/s, {wall * 1e3 / n_batches:.1f} ms/batch) on {smi}")
-        got = check_run(cfg, rows, c, dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=0), label)
+        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=0, k5=c["steps"])
+        got = check_run(cfg, rows, c, want, label)
         if c["k2"] == 0:
             fail(f"{label}: K2 never launched")
         with PlainPath():
@@ -2005,7 +2195,7 @@ def phase_e2e(torch, gpu_name, smi):
     label = f"KHMER_OCR_MEGA_DECODE=1, beam {bw}, max_len {max_len}"
     print(f"[e2e] {label}: {len(lines)} lines in {wall * 1e3:.1f} ms ({len(lines) / wall:.1f} lines/s) on {smi}")
     got = check_run(cfg, rows, c, dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=n_mega,
-                                       mega=n_mega), label)
+                                       mega=n_mega, k5=c["steps"]), label)
     if n_mega != 3 or c["k3"] == 0:
         fail(f"{label}: {n_mega} batches inside K3's envelope, {c['k3']} launches (expected 3)")
     n_diff = check_tokens(torch, pred, lines, plain_rows[max_len], got, f"{label} vs plain path")
@@ -2018,7 +2208,8 @@ def phase_e2e(torch, gpu_name, smi):
     pred.predict_batch_tokens(lines, beam_width=5, batch_size=bs, max_len=max_len)  # warm-up: the graphs captured
     rows, c, wall = counted_run(torch, pred, lines, 5, bs, max_len)
     label = f"beam 5, max_len {max_len}"
-    got = check_run(cfg, rows, c, dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=0), label)
+    want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=0, k5=c["steps"])
+    got = check_run(cfg, rows, c, want, label)
     with PlainPath():
         ref = [strip(r) for r in pred.predict_batch_tokens(lines, beam_width=5, batch_size=bs, max_len=max_len)]
     n_diff = check_tokens(torch, pred, lines, ref, got, f"{label} vs plain path")
@@ -2037,7 +2228,7 @@ def phase_e2e(torch, gpu_name, smi):
             bpred.predict_batch_tokens(short, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
             rows, c, wall = counted_run(torch, bpred, short, bw, bs, max_len)
             label = f"{name}, KHMER_OCR_MEGA_DECODE=1, beam {bw}, max_len {max_len}"
-            got = check_run(bcfg, rows, c, dict(k1=0, k2=0, k3=3, mega=3, steps=0), label)
+            got = check_run(bcfg, rows, c, dict(k1=0, k2=0, k3=3, mega=3, steps=0, k5=0), label)
             with PlainPath():
                 ref = [strip(r) for r in bpred.predict_batch_tokens(short, beam_width=bw, batch_size=bs,
                                                                     max_len=max_len)]
@@ -2097,7 +2288,7 @@ def phase_real(torch, smi):
             pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
             rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
         label = f"beam {bw}, max_len {max_len}" + (", KHMER_OCR_MEGA_DECODE=1" if mode == "k3" else "")
-        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=n_mega if mode == "k3" else 0)
+        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=n_mega if mode == "k3" else 0, k5=c["steps"])
         if mode == "k3":
             want["mega"] = n_mega
         got = check_run(cfg, rows, c, want, label, tag="real")
@@ -2175,7 +2366,7 @@ def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph")
                 rows = [strip(r) for r in rows]
                 walls[eager].append(wall * 1e3)
                 want = dict(k2=layers * c["steps"], captures=0, eager_steps=c["steps"] if eager else 0,
-                            replayed_steps=0 if eager else c["steps"])
+                            replayed_steps=0 if eager else c["steps"], k5=c["steps"] if bw > 1 else 0)
                 if any(c[k] != v for k, v in want.items()) or (not eager and c["replays"] == 0) or c["k3"]:
                     fail(f"{label}, {'Python loop' if eager else 'graphs'}: counts {c}, expected {want} "
                          f"({'no replay' if eager else 'replays'}, no K3)")
@@ -2424,9 +2615,9 @@ def sequential_run(torch, pred, lines, bw, bs, max_len):
     before the next is dispatched -> (token rows, counts, seconds), counted
     as counted_run counts."""
     from khmer_ocr_torch.decode import graphs
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, smem_probe
+    from khmer_ocr_torch.ops.kernels import beam_step, decode_loop, decode_step, lstm, smem_probe
 
-    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe}
+    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe, "k5": beam_step}
     torch.cuda.synchronize()
     for mod in kernels.values():
         mod.reset_launches()
@@ -4001,6 +4192,9 @@ def main() -> int:
     weights = layer_weights(pack_step_params(state["dec"]["layers"][0]))
     k2_rows, k2_err = phase_k2(torch, weights)
     k3_rows, k3_err, k3_resident = phase_k3(torch, state, ModelConfig())
+    t0 = time.perf_counter()
+    k5 = phase_beam_step(torch, state, ModelConfig(), smi)
+    print(f"[beam_step] the phase took {time.perf_counter() - t0:.1f} s")
     k4 = phase_k4(torch)
     e2e = phase_e2e(torch, gpu_name, smi)
     real = phase_real(torch, smi)
@@ -4111,6 +4305,11 @@ def main() -> int:
               bf16["k3_rows"][0], bf16["k3_rows"], storage="bfloat16", f32_ms=bf16["k3_rows"][0]["f32_ms"],
               step_loop_ms=bf16["k3_rows"][0]["step_loop_ms"], first_step=bf16["k3_first_step"],
               flagship_memory=bf16["k3_real"], resident_clusters={k: n for k, (_, n) in bf16["k3_resident"].items()}),
+        # launches: the flagship's 64 real lines served ([beam_step]), one a replayed step
+        entry("beam_step", "beam_step.cu", "none (XLA fuses the search into the JAX package's lax.while_loop body)",
+              k5["serve_k5"]["k5"], max(r["score_gap"] for r in k5["rows"]), k5["rows"][0], k5["rows"],
+              replayed_steps=k5["serve_k5"]["replayed_steps"], step_loop=k5["step_loop"],
+              serve_walls_ms=k5["serve_walls_ms"]),
         # launches: the probe's ladder and bisection, K4's path
         entry("smem_probe", "smem_probe.cu", tpu_kernel_site("probe_vmem.py", "try_mb"), k4["launches"],
               k4["max_abs_err"], k4, [], max_bytes=k4["max_bytes"], attribute_bytes=k4["attribute_bytes"],

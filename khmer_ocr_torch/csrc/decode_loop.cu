@@ -15,6 +15,8 @@
 //      flat index on ties (a taken candidate is masked to NEG_INF, as the
 //      reference's iterative top-k does);
 //   8. tokens and lineage reordered through the parent pointers.
+// Steps 4-8 are the routines of beam_search.cuh, which kernel K5
+// (beam_step.cu) runs one step a launch for the step loop.
 // At the end: the best completion, else lane 0. No early exit (the host loop's
 // exit is provably safe, so the tokens are the same).
 //
@@ -62,6 +64,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "beam_search.cuh"      // the search, shared with K5 (beam_step.cu)
 #include "decoder_cluster.cuh"  // the cluster layer, its shared-memory layout and helpers
 
 namespace {
@@ -75,8 +78,6 @@ using Storage = float;
 #endif
 
 constexpr int MAX_LAYERS = 8;
-constexpr int BIG = 1 << 30;
-constexpr float LOWEST = -3.402823466e38f;  // below every value, NEG_INF included
 
 template <typename T>
 struct LayerPtrs {
@@ -209,94 +210,25 @@ __global__ void __launch_bounds__(NT, 1) fused_beam_decode_kernel(const __grid_c
     scatter_ranks<K>(cluster, 0, H, s.y, vw, logit, Vp, rank * vw, vw);
     cluster.sync();
 
-    // 4-5. log-softmax and top-K of each lane, one warp per lane
-    if (warp < K) {
-      float* lr = logit + warp * Vp;
-      float m = LOWEST;
-      for (int c = lane; c < a.V; c += 32) m = fmaxf(m, lr[c]);
-      m = warp_max(m);
-      float se = 0.f;
-      for (int c = lane; c < a.V; c += 32) se += expf(lr[c] - m);
-      const float log_se = logf(warp_sum(se));
-      for (int c = lane; c < a.V; c += 32) lr[c] = (lr[c] - m) - log_se;
-      __syncwarp();
-      for (int j = 0; j < K; ++j) {
-        float bv = LOWEST;
-        int bi = BIG;
-        for (int c = lane; c < a.V; c += 32) {
-          if (lr[c] > bv) {
-            bv = lr[c];
-            bi = c;
-          }
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-          const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-          if (ov > bv || (ov == bv && oi < bi)) {
-            bv = ov;
-            bi = oi;
-          }
-        }
-        if (lane == 0) {
-          top_lp[warp * K + j] = bv;
-          top_id[warp * K + j] = bi;
-          lr[bi] = NEG_INF;
-        }
-        __syncwarp();
-      }
-    }
+    // 4-7. the search (beam_search.cuh, which K5 runs a step a launch): each lane's log-softmax and top-K, one
+    //      warp per lane; then completions and the next beams, one warp
+    if (warp < K) beam::lane_topk(logit + warp * Vp, a.V, K, true, top_lp + warp * K, top_id + warp * K);
     __syncthreads();
-
-    // 6-7. completions and the next beams (K * K <= 16 candidates: one thread)
-    if (tid == 0) {
-      const float den = (float)(step + 2);
-      float step_best = NEG_INF;
-      int best_beam = 0;
-      for (int l = 0; l < K; ++l) {
-        float e = NEG_INF;
-        for (int j = 0; j < K; ++j) {
-          if (top_id[l * K + j] == a.eos) e = fmaxf(e, (score[l] + top_lp[l * K + j]) / den);
-        }
-        if (e > step_best) {  // first maximum, as argmax
-          step_best = e;
-          best_beam = l;
-        }
+    if (warp == 0) {
+      int best_lane;
+      if (beam::retire(score, top_lp, top_id, K, a.eos, (float)(step + 2), best_score, best_lane)) {
+        for (int t = lane; t < LP; t += 32) best_tok[t] = t == step + 1 ? a.eos : tok[best_lane * LP + t];
       }
-      if (step_best > *best_score) {
-        *best_score = step_best;
-        for (int t = 0; t < LP; ++t) best_tok[t] = tok[best_beam * LP + t];
-        best_tok[step + 1] = a.eos;
-      }
-      float flat[K * K];
-      for (int c = 0; c < K * K; ++c) flat[c] = top_id[c] == a.eos ? NEG_INF : score[c / K] + top_lp[c];
-      float next[K];
-      for (int r = 0; r < K; ++r) {
-        int bi = 0;
-        for (int c = 1; c < K * K; ++c) {
-          if (flat[c] > flat[bi]) bi = c;
-        }
-        next[r] = flat[bi];
-        parent[r] = bi / K;
-        new_tok[r] = top_id[bi];
-        flat[bi] = NEG_INF;
-      }
-      for (int r = 0; r < K; ++r) score[r] = next[r];
+      float* next = logit;  // the logits are spent: the head writes the next step's
+      beam::next_beams(score, top_lp, top_id, K, a.eos, next, parent, new_tok);
+      if (lane < K) score[lane] = next[lane];
     }
     __syncthreads();
 
     // 8. reorder tokens and lineage through the parents; slot `step` of a
     //    lane's history now belongs to its parent
-    for (int i = tid; i < K * LP; i += NT) {
-      const int r = i / LP;
-      const int t = i - r * LP;
-      tok_nx[i] = t == step + 1 ? new_tok[r] : tok[parent[r] * LP + t];
-    }
-    for (int i = tid; i < K * ML; i += NT) {
-      const int r = i / ML;
-      const int t = i - r * ML;
-      lin_nx[i] = t == step ? parent[r] : lin[parent[r] * ML + t];
-    }
+    beam::reorder(tok_nx, tok, parent, K, LP, step + 1, new_tok);
+    beam::reorder(lin_nx, lin, parent, K, ML, step, parent);
     __syncthreads();
     int* tmp = tok;
     tok = tok_nx;

@@ -25,7 +25,10 @@ log-probs are <= 0, so a running beam with raw score s can never complete
 above s / (max_len + 1); once that bound is <= the best completion for
 every image, no later step changes an answer. Testing it needs a device
 sync, so it runs between chunks; the tokens are the same for any chunk
-length.
+length. On CUDA tensors a step's bookkeeping (log-softmax, top-K,
+retirement, the next beams, tokens and lineage) is one launch of kernel K5
+(ops/kernels/beam_step.py), which updates the state in place; on CPU
+tensors it is ``torch.log_softmax`` and ``beam_advance``.
 
 With ``DecodeConfig.mega_mode == "1"`` and inside the envelope of kernel K3
 (2 <= K <= 4, Tm <= 128, max_len <= 64, vocab <= 128), the whole search runs
@@ -58,6 +61,7 @@ from ..config import DecodeConfig, ModelConfig
 from ..models import ocr_model
 from ..models.layers import NEG_INF
 from ..models.ocr_model import decode_hidden, decode_step, init_decode_state, pack_decode_params
+from ..ops.kernels.beam_step import search_step
 from ..ops.kernels.decode_loop import fused_beam_decode, should_use_megakernel
 from ..ops.kernels.decode_step import head_fits, head_weights
 from ..parallel.mesh import world_of
@@ -156,20 +160,21 @@ def use_fused_head(dec_cfg: DecodeConfig, model_cfg: ModelConfig, memory, model_
 def beam_step(params: dict, state: dict, st: dict, w: int, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
               head=None, model_group=None) -> None:
     """One step of the search at the device position ``st["pos"]`` and cache
-    window ``w``: the layers (K2 on the card), the head, ``beam_advance``;
-    then ``pos`` + 1, on the device. No host read: the body of a graph."""
+    window ``w``: the layers (K2 on the card), the head, the search's
+    bookkeeping (``search_step``: kernel K5 on the card, in place; on CPU
+    tensors log-softmax and ``beam_advance``); then ``pos`` + 1, on the
+    device. No host read: the body of a graph."""
     b, k = st["scores"].shape
     pos = st["pos"]
     cur = st["tokens"].index_select(2, pos.reshape(1)).reshape(b * k)
     lineage = st["lineage"][:, :, :w].reshape(b * k, w).contiguous()
-    if head is not None:
+    if head is not None:  # K2's fused head gives the log-probs
         _, logp = decode_hidden(params, state, cur, pos, model_cfg, window=w, lineage_local=lineage, head=head)
-        logp = logp[:, :head[2]]
+        search_step(st, logp, pos, dec_cfg, log_probs=True, vocab=head[2])
     else:
         logits = decode_step(params, state, cur, pos, model_cfg, window=w, lineage_local=lineage,
                              model_group=model_group)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-    beam_advance(st, logp.reshape(b, k, -1), pos, dec_cfg)
+        search_step(st, logits.float(), pos, dec_cfg, log_probs=False)
     pos.add_(1)
 
 
@@ -230,7 +235,7 @@ def beam_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, d
     packed = cache.packed(params) if cache is not None else pack_decode_params(params)
     # the shape's key: everything its graphs and buffers were made for but the params
     key = ("beam", b, k, tm, memory.dtype, memory.device, max_len, dec_cfg.sos_idx, dec_cfg.eos_idx, dec_cfg.pad_idx,
-           fused_head, ocr_model.decoder_layer_step, graphs.precision_key())
+           fused_head, ocr_model.decoder_layer_step, search_step, graphs.precision_key())
     r0 = graphs.replays
     tokens, steps = graphs.decode(
         cache, key, lambda: _beam_shape(packed, memory, memory_pad_mask, model_cfg, dec_cfg, fused_head, model_group),

@@ -39,7 +39,7 @@ from collections import OrderedDict
 import torch
 
 from ..models.ocr_model import EXIT_CHECK_EVERY, decode_windows, memory_kv, pack_decode_params
-from ..ops.kernels import decode_step
+from ..ops.kernels import beam_step, decode_step
 from ..profiling import span
 
 # The share of the card's memory a GraphCache's shapes may hold unless its
@@ -65,6 +65,17 @@ _SIDE: dict = {}  # the side stream of each (device, role)
 def reset_counts() -> None:
     global captures, replays, replayed_steps, eager_steps
     captures = replays = replayed_steps = eager_steps = 0
+
+
+def kernel_counts() -> tuple:
+    """K2's counts (``decode_step.k2_counts``), then K5's launches."""
+    return (*decode_step.k2_counts(), beam_step.launches)
+
+
+def add_kernel_counts(delta) -> None:
+    """Add ``delta`` (as ``kernel_counts``) to K2's and K5's counts."""
+    decode_step.add_k2_counts(delta[:-1])
+    beam_step.add_launches(delta[-1])
 
 
 def step_chunks(max_len: int, every: int = EXIT_CHECK_EVERY) -> list[tuple[int, int, int]]:
@@ -198,13 +209,13 @@ class StepGraphs:
             if (w, n) in self.graphs:
                 continue
             self.set_pos(start)
-            before = decode_step.k2_counts()
+            before = kernel_counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
                 self.run(w, n)
-            # the capture launched nothing: its K2 counts move to each replay
-            delta = tuple(a - b for a, b in zip(decode_step.k2_counts(), before))
-            decode_step.add_k2_counts(tuple(-d for d in delta))
+            # the capture launched nothing: its K2 and K5 counts move to each replay
+            delta = tuple(a - b for a, b in zip(kernel_counts(), before))
+            add_kernel_counts(tuple(-d for d in delta))
             self.graphs[(w, n)] = (graph, delta)
             captures += 1
 
@@ -212,7 +223,7 @@ class StepGraphs:
         global replays, replayed_steps
         graph, delta = self.graphs[(w, n)]
         graph.replay()
-        decode_step.add_k2_counts(delta)
+        add_kernel_counts(delta)
         replays += 1
         replayed_steps += n
 

@@ -39,6 +39,7 @@ SOURCES = {
     "decoder_block_bf16": "decoder_block.cu",
     "decode_loop": "decode_loop.cu",
     "decode_loop_bf16": "decode_loop.cu",
+    "beam_step": "beam_step.cu",
     "smem_probe": "smem_probe.cu",
 }
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)

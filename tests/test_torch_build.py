@@ -1,12 +1,14 @@
 """The kernel build's cache key, on the CPU (no nvcc needed).
 
 ``ops/kernels/build.py`` names each library by a hash of its source, the
-``csrc/`` headers the source includes and the nvcc flags. An edit to either
-header that kernels K2 (with its tensor-parallel blocks) and K3 share (the
-cluster layer and the constants and LayerNorm it includes) must give all of
-them a new library, for either storage type (a stale one would run
-the old layer), and leave the other kernels' libraries as they are. The
-module imports no torch, so these run in the pytest process.
+``csrc/`` headers the source includes and the nvcc flags. An edit to a
+shared header must give each kernel that includes it a new library, for
+either storage type (a stale one would run the old code), and leave the
+other kernels' libraries as they are: the cluster layer that kernels K2
+(with its tensor-parallel blocks) and K3 share, the constants and LayerNorm
+it includes (which the beam search's routines use too), and the beam
+search's routines that K3 and K5 share. The module imports no torch, so
+these run in the pytest process.
 """
 
 from __future__ import annotations
@@ -17,11 +19,17 @@ import pytest
 
 from khmer_ocr_torch.ops.kernels import build
 
-SHARED = ("decoder_common.cuh", "decoder_cluster.cuh")
 # K2, its tensor-parallel blocks and K3, each built once per storage type (float, bf16), and K2's second float
 # build, bounded for two CTAs an SM
-USERS = ("decoder_layer_step", "decoder_layer_step_bf16", "decoder_layer_step_two_ctas", "decoder_block",
-         "decoder_block_bf16", "decode_loop", "decode_loop_bf16")
+CLUSTER_USERS = ("decoder_layer_step", "decoder_layer_step_bf16", "decoder_layer_step_two_ctas", "decoder_block",
+                 "decoder_block_bf16", "decode_loop", "decode_loop_bf16")
+# each shared header -> the libraries built from it
+USERS = {
+    "decoder_common.cuh": (*CLUSTER_USERS, "beam_step"),
+    "decoder_cluster.cuh": CLUSTER_USERS,
+    "beam_search.cuh": ("decode_loop", "decode_loop_bf16", "beam_step"),
+}
+SHARED = tuple(USERS)
 
 
 @pytest.mark.parametrize("name", sorted(build.SOURCES))
@@ -29,7 +37,7 @@ def test_source_and_its_headers(name):
     files = [f.name for f in build.source_files(name)]
     assert files[0] == build.SOURCES[name] and all((build.CSRC_DIR / f).exists() for f in files)
     for header in SHARED:
-        assert (header in files) == (name in USERS)
+        assert (header in files) == (name in USERS[header])
 
 
 @pytest.mark.parametrize("header", SHARED)
@@ -40,7 +48,7 @@ def test_header_edit_rebuilds_exactly_its_users(tmp_path, monkeypatch, header):
     before = {name: build.library_path(name) for name in build.SOURCES}
     (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
     after = {name: build.library_path(name) for name in build.SOURCES}
-    assert {name for name in build.SOURCES if before[name] != after[name]} == set(USERS)
+    assert {name for name in build.SOURCES if before[name] != after[name]} == set(USERS[header])
 
 
 @pytest.mark.parametrize("dtype,two_ctas,name,flags", [
