@@ -46,7 +46,9 @@ span (profiling.py::span): on the caller's thread ``khmer_ocr.predict``
 around the call, ``khmer_ocr.wait_dispatch``, ``khmer_ocr.decode``,
 ``khmer_ocr.drain`` and ``khmer_ocr.join``, which do not overlap; on the
 dispatch thread ``khmer_ocr.prepare``, ``khmer_ocr.wait_slot`` and
-``khmer_ocr.dispatch``.
+``khmer_ocr.dispatch``, and inside the last ``khmer_ocr.encode.eager``
+around the encode of a batch too large for a graph
+(``Predictor.eager_encodes`` counts those batches).
 
 The serving speed mode: ``RuntimeConfig.compute_dtype="bfloat16"`` casts the
 params to bfloat16 (the BatchNorm statistics stay float32), so activations,
@@ -313,6 +315,9 @@ class Predictor:
         self.decode_steps = 0  # decode steps run since construction (all batches; graph replays or the Python loop)
         self.mega_batches = 0  # beam batches decoded by the whole-decode path (one K3 launch each)
         self.head_batches = 0  # beam batches whose decode head ran inside K2's last launch
+        # bucket batches of more than encode_graph.MAX_CHUNKS rows x chunks: too large for an encode graph, so the
+        # dispatch stage encodes them eagerly (on the CPU every encode is eager; these are counted alone)
+        self.eager_encodes = 0
         self.max_batches_in_flight = 0  # in the last predict_batch call, the most batches dispatched and not drained
         self._encode_stream = dispatch_stream(self.device) if self.device.type == "cuda" else None
 
@@ -379,7 +384,11 @@ class Predictor:
                 self.graph_cache.capture_lock:
             lines, counts, b = self._to_device_batch(batch)
             encode = lambda l, c: encode_batch(self.params, l, c, self.model_cfg, self._chunk_geom)  # noqa: E731
-            if self._encode_stream is None or lines.shape[0] * batch.bucket_n > encode_graph.MAX_CHUNKS:
+            if lines.shape[0] * batch.bucket_n > encode_graph.MAX_CHUNKS:  # too large to capture
+                self.eager_encodes += 1
+                with span("khmer_ocr.encode.eager"):
+                    memory, pad = encode(lines, counts)
+            elif self._encode_stream is None:
                 memory, pad = encode(lines, counts)
             else:
                 memory, pad = encode_graph.encode_graphed(self.encode_cache, self.params, encode, lines, counts)
