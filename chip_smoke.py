@@ -16,17 +16,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
      batch tile) at each shape, the one geometry.k1_route picks timed as the
      kernel, max |diff| <= 1e-4;
   4. K2 (decoder layer step, reading the position from a device int32)
-     against its plain version: the main path's 1
-     and 8 images x 3 lanes at w=64, Tm 256, 1024 and 4096; 64 images x 3
+     against its plain version, by both routes: the card route
+     (decoder_layer_card.cu, seven launches over the whole card) at its
+     greedy shapes, at the window's first, middle and last slot, and the
+     cluster route; the serving cells' 1, 8 and 64 images x 3 lanes at
+     w=64, Tm 256, 384, 1024 and 4096, greedy 32 x 1 at w 64 and 160, Tm
+     256 and 384, at w 64, Tm 128 and at w 160, Tm 4096; 64 images x 3
      lanes, windows 32..256 at pos = w - 1, Tm 32..4096; then 1, 2, 4 and 5
-     lanes at w=64, Tm=256, and greedy (no lineage) at 1 image x Tm=4096
-     and 8 images x Tm=256; random lineage and ragged memory validity:
-     output and written cache slot within 1e-4, every other cache slot
-     bit-identical, with one and (where the launch fits the SMs) two CTAs a
-     head, and from both float32 libraries (registers bounded for one CTA
-     an SM and for two; geometry.k2_two_ctas_an_sm picks one per launch);
-     timed as device time (a CUDA graph of launches) and as a call from
-     Python;
+     lanes at w=64, Tm=256, and greedy at 1 image x Tm=4096, 8 x Tm=256 and
+     11 x Tm=384; random lineage and ragged memory validity: output and
+     written cache slot within 1e-4, every other cache slot bit-identical, the cluster
+     route with one and (where the launch fits the SMs) two CTAs a head,
+     and from both float32 libraries (registers bounded for one CTA an SM
+     and for two; geometry.k2_two_ctas_an_sm picks one per launch); timed
+     as device time (a CUDA graph of launches) and as a call from Python;
+     geometry.k2_route's pick timed as the kernel. Then the card route's
+     replays beside a second stream's convolutions: they end, bit-equal;
   5. K3 (whole beam decode, one cluster of one CTA per head for each
      image) against its plain version on seeded flagship decoder weights:
      8 images at Tm 32..128, beam 2-4, max_len 16 and 64; 64 images at
@@ -547,10 +552,14 @@ def k2_cost(torch, n_img, lanes, d, f, heads, pos, tm, tm_valid, lineage, weight
     return nbytes, matvec + attn + 30 * b * d
 
 
-def phase_k2(torch, weights):
-    """K2 against its plain version; ``ms`` is the device time of a launch
-    (graph_ms), ``call_ms`` that of a call from Python (cuda_ms, the wrapper's
-    host time included)."""
+def phase_k2(torch, weights, cases=None):
+    """K2 against its plain version by both routes (the card route at the
+    greedy shapes of at most ``geometry.CARD_MAX_ROWS`` rows it takes, and
+    the cluster route with its variants), at ``cases`` ((images, lanes,
+    window, Tm, greedy), by default those below); ``ms`` is the device time
+    of a launch of the route ``geometry.k2_route`` picks (graph_ms),
+    ``call_ms`` that of a call from Python (cuda_ms, the wrapper's host time
+    included)."""
     from khmer_ocr_torch.ops.kernels import decode_step as K
     from khmer_ocr_torch.ops.kernels import geometry
 
@@ -559,79 +568,136 @@ def phase_k2(torch, weights):
     numel = sum(v.numel() for v in weights.values())
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows, worst = [], 0.0
-    # the main path's sizes (1 and 8 images x 3 lanes), the 64-image grid at 3 lanes, then every
-    # other lane count the beam widths 1-5 give, and greedy (no lineage)
-    cases = [(n, 3, 64, tm, False) for n in (1, 8) for tm in (256, 1024, 4096)]
-    cases += [(64, 3, w, tm, False) for w in (32, 64, 128, 256) for tm in (32, 256, 1024, 4096)]
-    cases += [(64, lanes, 64, 256, False) for lanes in (1, 2, 4, 5)]
-    cases += [(1, 1, 64, 4096, True), (8, 1, 64, 256, True)]
+    # the serving cells' shapes first (1 and 8 images x 3 lanes with lineage; 32 x 1 greedy over memories of 256
+    # and 384 rows, and of 128 rows, the greedy batch of 32 in [e2e] and [decode_graph]), with 64 x 3 and memories
+    # of 4096; the 64-image grid at 3 lanes; every other lane count the beam widths 1-5 give, and greedy tails
+    if cases is None:
+        cases = [(n, 3, 64, tm, False) for n in (1, 8, 64) for tm in (256, 384, 1024, 4096)]
+        cases += [(32, 1, w, tm, True) for w in (64, 160) for tm in (256, 384)]
+        cases += [(32, 1, 64, 128, True), (32, 1, 160, 4096, True)]
+        cases += [(64, 3, w, tm, False) for w in (32, 128, 256) for tm in (32, 256, 1024, 4096)]
+        cases += [(64, lanes, 64, 256, False) for lanes in (1, 2, 4, 5)]
+        cases += [(1, 1, 64, 4096, True), (8, 1, 64, 256, True), (11, 1, 160, 384, True)]
     for n_img, lanes, w, tm, greedy in cases:
-        b = n_img * lanes
-        pos = w - 1
-        at = torch.tensor(pos, dtype=torch.int32, device="cuda")  # K2 reads the position on the card
-        x = torch.randn(b, d, device="cuda", generator=gen) * 0.5
-        sk = torch.randn(b, cache_len, d, device="cuda", generator=gen) * 0.3
-        sv = torch.randn(b, cache_len, d, device="cuda", generator=gen) * 0.3
-        mk = torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.3
-        mv = torch.randn(n_img, tm, d, device="cuda", generator=gen) * 0.3
-        valid_len = torch.randint(1, tm + 1, (n_img,), device="cuda", generator=gen)
-        mvf = (torch.arange(tm, device="cuda")[None, :] < valid_len[:, None]).float().contiguous()
-        lin = None if greedy else torch.randint(0, lanes, (b, w), device="cuda", generator=gen, dtype=torch.int32)
-        sk_k, sv_k, sk_p, sv_p = sk.clone(), sv.clone(), sk.clone(), sv.clone()
-        out = K.decoder_layer_step(weights, x, at, sk_k, sv_k, mk, mv, mvf, lin, num_heads=heads,
-                                   window=w, lanes=lanes)
-        ref = K.decoder_layer_step_plain(weights, x, pos, sk_p, sv_p, mk, mv, mvf, lin, num_heads=heads,
-                                         window=w, lanes=lanes)
-        torch.cuda.synchronize()
-        err = max((out - ref).abs().max().item(), (sk_k[:, pos] - sk_p[:, pos]).abs().max().item(),
-                  (sv_k[:, pos] - sv_p[:, pos]).abs().max().item())
-        keep = torch.ones(cache_len, dtype=torch.bool, device="cuda")
-        keep[pos] = False
-        untouched = torch.equal(sk_k[:, keep], sk[:, keep]) and torch.equal(sv_k[:, keep], sv[:, keep])
+        x, sk, sv, mk, mv, mvf, lin, tm_valid = k2_inputs(torch, gen, n_img, lanes, d, tm, cache_len, w)
+        lin = None if greedy else lin
+        err, untouched = 0.0, True
+        # the card route (where it takes the shape) at the window's first, middle and last slot, then every
+        # variant at the last
         _, clusters, ctas = geometry.k2_geometry(n_img, lanes, heads, tm)
         split = ctas // heads
-        built = 2 if geometry.k2_two_ctas_an_sm(clusters, ctas) else 1  # CTAs an SM the library is bounded for
-        shape = f"{'greedy ' if greedy else ''}{n_img}x{lanes} w={w} Tm={tm}"
-        # the other number of CTAs a head, where the launch fits the SMs with two, and the other library
+        built = 2 if geometry.k2_two_ctas_an_sm(clusters, ctas) else 1  # CTAs an SM the cluster library is bounded for
         other = 3 - split if clusters * 2 * heads <= geometry.SMS else None
-        variants = ([dict(split=other)] if other is not None else []) + [dict(ctas_an_sm=3 - built)]
-        caches = []
-        for extra in variants:
-            sk_o, sv_o = sk.clone(), sv.clone()
-            caches.append((sk_o, sv_o))
-            out_o = K.decoder_layer_step_kernel(weights, x, at, sk_o, sv_o, mk, mv, mvf, lin, num_heads=heads,
-                                                window=w, lanes=lanes, **extra)
-            torch.cuda.synchronize()
-            err = max(err, (out_o - ref).abs().max().item(), (sk_o[:, pos] - sk_p[:, pos]).abs().max().item(),
-                      (sv_o[:, pos] - sv_p[:, pos]).abs().max().item())
-            untouched = untouched and torch.equal(sk_o[:, keep], sk[:, keep]) and torch.equal(sv_o[:, keep],
-                                                                                              sv[:, keep])
+        card = greedy and lanes == 1 and n_img <= geometry.CARD_MAX_ROWS
+        variants = {"card": dict(route="card")} if card else {}
+        variants["cluster"] = dict(route="cluster")
+        if other is not None:
+            variants["cluster_other_split"] = dict(route="cluster", split=other)
+        variants["cluster_other_library"] = dict(route="cluster", ctas_an_sm=3 - built)
+        caches = {}
+        for name, extra in variants.items():
+            for pos in ((0, w // 2, w - 1) if name == "card" else (w - 1,)):
+                at = torch.tensor(pos, dtype=torch.int32, device="cuda")  # K2 reads the position on the card
+                sk_o, sv_o, sk_p, sv_p = sk.clone(), sv.clone(), sk.clone(), sv.clone()
+                out = K.decoder_layer_step_kernel(weights, x, at, sk_o, sv_o, mk, mv, mvf, lin, num_heads=heads,
+                                                  window=w, lanes=lanes, **extra)
+                ref = K.decoder_layer_step_plain(weights, x, pos, sk_p, sv_p, mk, mv, mvf, lin, num_heads=heads,
+                                                 window=w, lanes=lanes)
+                torch.cuda.synchronize()
+                e = max((out - ref).abs().max().item(), (sk_o[:, pos] - sk_p[:, pos]).abs().max().item(),
+                        (sv_o[:, pos] - sv_p[:, pos]).abs().max().item())
+                keep = torch.ones(cache_len, dtype=torch.bool, device="cuda")
+                keep[pos] = False
+                same = torch.equal(sk_o[:, keep], sk[:, keep]) and torch.equal(sv_o[:, keep], sv[:, keep])
+                if not e <= TOL or not same or not torch.isfinite(out).all():
+                    fail(f"K2 decoder_layer_step {name} {n_img}x{lanes} w={w} Tm={tm} pos={pos}: max|diff| {e:.3e} "
+                         f"(tol {TOL}), untouched slots identical: {same}")
+                err, untouched = max(err, e), untouched and same
+            caches[name] = (at, sk_o, sv_o)
         worst = max(worst, err)
-        if not err <= TOL or not untouched or not torch.isfinite(out).all():
-            fail(f"K2 decoder_layer_step {shape}: max|diff| {err:.3e} (tol {TOL}), "
-                 f"untouched slots identical: {untouched}")
-        step = lambda: K.decoder_layer_step(weights, x, at, sk_k, sv_k, mk, mv, mvf, lin, num_heads=heads,
+        route = geometry.k2_route(n_img, lanes, tm, 4, False, d, heads, f)
+        shape = f"{'greedy ' if greedy else ''}{n_img}x{lanes} w={w} Tm={tm}"
+        at = caches["cluster"][0]  # the window's last slot
+        step = lambda: K.decoder_layer_step(weights, x, at, sk, sv, mk, mv, mvf, lin, num_heads=heads,
                                             window=w, lanes=lanes)
         ms = graph_ms(torch, step)
         call_ms = cuda_ms(torch, step, 20)
-        variant_ms = [graph_ms(torch, lambda: K.decoder_layer_step_kernel(
-            weights, x, at, c[0], c[1], mk, mv, mvf, lin, num_heads=heads, window=w, lanes=lanes, **extra))
-            for extra, c in zip(variants, caches)]
-        other_ms = variant_ms[0] if other is not None else None
-        plain_ms = cuda_ms(torch, lambda: K.decoder_layer_step_plain(weights, x, pos, sk_p, sv_p, mk, mv, mvf,
+        times = {name: graph_ms(torch, lambda: K.decoder_layer_step_kernel(
+            weights, x, c[0], c[1], c[2], mk, mv, mvf, lin, num_heads=heads, window=w, lanes=lanes,
+            **variants[name])) for name, c in caches.items()}
+        plain_ms = cuda_ms(torch, lambda: K.decoder_layer_step_plain(weights, x, w - 1, sk, sv, mk, mv, mvf,
                                                                      lin, num_heads=heads, window=w,
                                                                      lanes=lanes), 2)
-        nbytes, ops = k2_cost(torch, n_img, lanes, d, f, heads, pos, tm, int(valid_len.sum()), lin, numel)
+        nbytes, ops = k2_cost(torch, n_img, lanes, d, f, heads, w - 1, tm, tm_valid, lin, numel)
         bms, by = bound_ms(nbytes, ops)
-        rows.append(dict(shape=shape, ctas_per_head=split, ctas_an_sm=built, max_abs_err=err, ms=ms, call_ms=call_ms,
-                         other_split_ms=other_ms, other_library_ms=variant_ms[-1], plain_ms=plain_ms, library_ms=None,
+        rows.append(dict(shape=shape, route=route, ctas_per_head=split, ctas_an_sm=built, max_abs_err=err, ms=ms,
+                         call_ms=call_ms, card_ms=times.get("card"), cluster_ms=times["cluster"],
+                         other_split_ms=times.get("cluster_other_split"),
+                         other_library_ms=times["cluster_other_library"], plain_ms=plain_ms, library_ms=None,
                          bound_ms=bms, bound_by=by))
-        also = "" if other is None else f"; {other} CTA(s) a head {other_ms:.4f} ms"
-        print(f"[K2] {shape:22s} pos={pos:3d}: max|diff| {err:.2e}, untouched slots identical; kernel, {split} "
-              f"CTA(s) a head, {built} CTA(s) an SM: {ms:.4f} ms (a call from Python {call_ms:.4f} ms{also}; the "
-              f"library for {3 - built} CTA(s) an SM {variant_ms[-1]:.4f} ms), plain {plain_ms:.3f} ms, "
-              f"bound {bms:.4f} ms ({by}), {bms / ms:.2%} of roofline")
-    return rows, worst
+        also = "" if other is None else f", {other} CTA(s) a head {times['cluster_other_split']:.4f}"
+        card_says = (f"card {times['card']:.4f} ms (checked at pos 0, {w // 2}, {w - 1}); " if card else
+                     "card route: not for this shape; ")
+        print(f"[K2] {shape:22s}: max|diff| {err:.2e} (every variant at pos {w - 1}), untouched slots identical; "
+              f"{route} route picked: {ms:.4f} ms (a call from Python {call_ms:.4f} ms); {card_says}cluster, "
+              f"{split} CTA(s) a head, {built} CTA(s) an SM: {times['cluster']:.4f} ms (the library for {3 - built} "
+              f"CTA(s) an SM {times['cluster_other_library']:.4f}{also}); plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+              f"({by}), {bms / ms:.2%} of roofline")
+    beside = k2_beside_convolutions(torch, weights, gen)
+    return rows, worst, beside
+
+
+def k2_beside_convolutions(torch, weights, gen, steps: int = 400):
+    """The card route's layer steps (replayed CUDA graphs, 32 x 1 greedy at Tm
+    384) while a second stream runs a ResNet block's float32 3x3
+    convolutions at the same time, as the dispatch stage's encode runs beside
+    the decode: it must end, and its outputs and cache slots must equal those
+    of the same replays alone, bit for bit."""
+    from khmer_ocr_torch.ops.kernels import decode_step as K
+
+    n_img, lanes, w, tm, heads = 32, 1, 160, 384, 8
+    x, sk, sv, mk, mv, mvf, _, _ = k2_inputs(torch, gen, n_img, lanes, 384, tm, 256, w)
+    lin = None  # greedy
+    at = torch.tensor(w - 1, dtype=torch.int32, device="cuda")
+    outs = []
+    step = lambda: outs.append(K.decoder_layer_step(weights, x, at, sk, sv, mk, mv, mvf, lin, num_heads=heads,
+                                                    window=w, lanes=lanes))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    outs.clear()
+    with torch.cuda.graph(graph):
+        step()
+    out = outs[0]
+    conv_in = torch.randn(32, 256, 12, 100, device="cuda", generator=gen)
+    conv_w = torch.randn(256, 256, 3, 3, device="cuda", generator=gen) * 0.02
+
+    def replays():
+        for _ in range(steps):
+            graph.replay()
+
+    replays()
+    torch.cuda.synchronize()
+    alone = (out.clone(), sk[:, w - 1].clone(), sv[:, w - 1].clone())
+    conv_stream = torch.cuda.Stream()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(conv_stream):
+        y = conv_in
+        for _ in range(60):
+            y = torch.nn.functional.conv2d(y, conv_w, padding=1).relu_()
+    replays()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    equal = (torch.equal(out, alone[0]) and torch.equal(sk[:, w - 1], alone[1])
+             and torch.equal(sv[:, w - 1], alone[2]))
+    if not equal:
+        fail("K2's card route beside convolutions on another stream: outputs differ from its replays alone")
+    print(f"[K2] card route beside a second stream's 60 convolutions (32 x 256 x 12 x 100, 3x3, f32): {steps} "
+          f"replays of 32x1 Tm=384 ended, outputs and cache slots bit-equal to the replays alone; {seconds:.3f} s")
+    return dict(steps=steps, seconds=seconds, equal=equal)
 
 
 def teacher_forced_score(torch, params, cfg, lines_u8, count, seq):
@@ -2074,8 +2140,9 @@ def counted_run(torch, pred, lines, bw, bs, max_len):
     """One request with every kernel's launch count set to 0 just before it
     and read just after: (token rows, counts, seconds). K2's count inside
     the decode's CUDA graphs is that of each replay's launches
-    (decode/graphs.py); the counts also hold the decode's graph captures and
-    replays and the steps the Python loop ran on the card."""
+    (decode/graphs.py), ``k2_card`` those of them on K2's card route; the
+    counts also hold the decode's graph captures and replays and the steps
+    the Python loop ran on the card."""
     from khmer_ocr_torch.decode import graphs
     from khmer_ocr_torch.ops.kernels import beam_step, decode_loop, decode_step, lstm, smem_probe
 
@@ -2090,8 +2157,9 @@ def counted_run(torch, pred, lines, bw, bs, max_len):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: mod.launches for k, mod in kernels.items()}
-    counts.update(steps=pred.decode_steps - steps0, mega=pred.mega_batches - mega0, captures=graphs.captures,
-                  replays=graphs.replays, replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
+    counts.update(k2_card=decode_step.card_launches, steps=pred.decode_steps - steps0,
+                  mega=pred.mega_batches - mega0, captures=graphs.captures, replays=graphs.replays,
+                  replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
     return rows, counts, wall
 
 
@@ -2103,9 +2171,9 @@ def check_run(cfg, rows, counts, want: dict, label: str, tag: str = "e2e") -> li
     import numpy as np
 
     want = {"eager_steps": 0, "replayed_steps": counts["steps"], **want}
-    print(f"[{tag}] {label}: launches K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']}, K5 {counts['k5']} "
-          f"(expected {want['k1']}, {want['k2']}, {want['k3']}, {want.get('k5', 'any')}); {counts['steps']} decode "
-          f"steps "
+    print(f"[{tag}] {label}: launches K1 {counts['k1']}, K2 {counts['k2']} ({counts['k2_card']} on the card route), "
+          f"K3 {counts['k3']}, K5 {counts['k5']} (expected {want['k1']}, {want['k2']} ({want.get('k2_card', 'any')}), "
+          f"{want['k3']}, {want.get('k5', 'any')}); {counts['steps']} decode steps "
           f"({counts['replays']} graph replays, {counts['eager_steps']} steps by the Python loop), "
           f"{counts['mega']} whole-decode batches")
     if any(counts[k] != v for k, v in want.items()) or counts["k4"]:
@@ -2141,6 +2209,14 @@ def check_memory(torch, pred, lines, bs, label: str, tag: str = "e2e") -> float:
     return worst
 
 
+def card_route_lines():
+    """32 seeded synthetic lines of 4 chunks each: one bucket, so a greedy
+    batch of 32 is one launch shape that K2's card route takes."""
+    from khmer_ocr_torch.data.synthetic import synthetic_lines
+
+    return synthetic_lines([4] * 32, seed=23)
+
+
 def phase_e2e(torch, gpu_name, smi):
     from khmer_ocr_torch.config import ModelConfig
     from khmer_ocr_torch.convert.from_jax import seeded_params
@@ -2172,7 +2248,8 @@ def phase_e2e(torch, gpu_name, smi):
         label = f"beam {bw}, max_len {max_len}"
         print(f"[e2e] {label}: {len(lines)} lines in {n_batches} batches, {wall * 1e3:.1f} ms "
               f"({len(lines) / wall:.1f} lines/s, {wall * 1e3 / n_batches:.1f} ms/batch) on {smi}")
-        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=0, k5=c["steps"])
+        # beam 3 at batch 8: K2's cluster route (geometry.k2_route)
+        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k2_card=0, k3=0, k5=c["steps"])
         got = check_run(cfg, rows, c, want, label)
         if c["k2"] == 0:
             fail(f"{label}: K2 never launched")
@@ -2194,7 +2271,7 @@ def phase_e2e(torch, gpu_name, smi):
         rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
     label = f"KHMER_OCR_MEGA_DECODE=1, beam {bw}, max_len {max_len}"
     print(f"[e2e] {label}: {len(lines)} lines in {wall * 1e3:.1f} ms ({len(lines) / wall:.1f} lines/s) on {smi}")
-    got = check_run(cfg, rows, c, dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=n_mega,
+    got = check_run(cfg, rows, c, dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k2_card=0, k3=n_mega,
                                        mega=n_mega, k5=c["steps"]), label)
     if n_mega != 3 or c["k3"] == 0:
         fail(f"{label}: {n_mega} batches inside K3's envelope, {c['k3']} launches (expected 3)")
@@ -2216,6 +2293,22 @@ def phase_e2e(torch, gpu_name, smi):
     print(f"[e2e] {label}: {len(lines)} lines in {wall * 1e3:.1f} ms; {len(lines) - n_diff}/{len(lines)} lines "
           f"token-identical to the plain path")
     results["beam5"] = dict(ms=wall * 1e3, lines_per_s=len(lines) / wall, **c)
+
+    # greedy at batch 32 on 32 lines of one bucket: every K2 launch on the card route
+    wide = card_route_lines()
+    pred.predict_batch_tokens(wide, beam_width=1, batch_size=32, max_len=max_len)  # warm-up: the graphs captured
+    rows, c, wall = counted_run(torch, pred, wide, 1, 32, max_len)
+    label = f"greedy, batch 32 (K2's card route), max_len {max_len}"
+    layers_steps = cfg.dec_layers * c["steps"]
+    got = check_run(cfg, rows, c, dict(k1=1, k2=layers_steps, k2_card=layers_steps, k3=0, k5=0), label)
+    if c["k2_card"] == 0:
+        fail(f"{label}: the card route never launched")
+    with PlainPath():
+        ref = [strip(r) for r in pred.predict_batch_tokens(wide, beam_width=1, batch_size=32, max_len=max_len)]
+    n_diff = check_tokens(torch, pred, wide, ref, got, f"{label} vs plain path")
+    print(f"[e2e] {label}: {len(wide)} lines in {wall * 1e3:.1f} ms; {len(wide) - n_diff}/{len(wide)} lines "
+          f"token-identical to the plain path")
+    results["greedy32"] = dict(ms=wall * 1e3, lines_per_s=len(wide) / wall, **c)
 
     # the baseline backbones without the BiLSTM, the 12 short lines through the whole-decode path
     short = [line for line, n in zip(lines, counts) if n <= 4]
@@ -2288,7 +2381,8 @@ def phase_real(torch, smi):
             pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
             rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
         label = f"beam {bw}, max_len {max_len}" + (", KHMER_OCR_MEGA_DECODE=1" if mode == "k3" else "")
-        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k3=n_mega if mode == "k3" else 0, k5=c["steps"])
+        want = dict(k1=n_batches, k2=cfg.dec_layers * c["steps"], k2_card=0, k3=n_mega if mode == "k3" else 0,
+                    k5=c["steps"])
         if mode == "k3":
             want["mega"] = n_mega
         got = check_run(cfg, rows, c, want, label, tag="real")
@@ -2335,7 +2429,7 @@ GRAPH_REPEATS = 3  # timed requests of each path, in turns
 TRACE_ATTEMPTS = 5  # profiled requests of each path until the trace holds every K2 launch counted
 
 
-def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph"):
+def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph", card=False):
     """The request through the decode's CUDA graphs and through the Python
     step loop (``Predictor.eager_decode``), each warmed up, then timed
     GRAPH_REPEATS times in turns, each run counted and held: the graphs' runs
@@ -2346,10 +2440,13 @@ def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph")
     and the K2 kernels the trace holds, equal to layers x the request's
     steps and to its K2 count (on the graph path that count is derived from
     the replays; a trace short of it, the profiler's loss, is taken again,
-    up to TRACE_ATTEMPTS times), its tokens equal too. Returns
-    (the graphs' token rows, a dict of the numbers)."""
+    up to TRACE_ATTEMPTS times), its tokens equal too. ``card``: every K2
+    launch on the card route (CARD_KERNELS kernels each), else none. Returns (the
+    graphs' token rows, a dict of the numbers)."""
     from khmer_ocr_torch.decode import graphs
     from khmer_ocr_torch.profiling import busy_ms, device_events
+
+    from khmer_ocr_torch.ops.kernels import decode_step
 
     layers = pred.model_cfg.dec_layers
     out = {}
@@ -2367,6 +2464,7 @@ def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph")
                 walls[eager].append(wall * 1e3)
                 want = dict(k2=layers * c["steps"], captures=0, eager_steps=c["steps"] if eager else 0,
                             replayed_steps=0 if eager else c["steps"], k5=c["steps"] if bw > 1 else 0)
+                want["k2_card"] = layers * c["steps"] if card else 0
                 if any(c[k] != v for k, v in want.items()) or (not eager and c["replays"] == 0) or c["k3"]:
                     fail(f"{label}, {'Python loop' if eager else 'graphs'}: counts {c}, expected {want} "
                          f"({'no replay' if eager else 'replays'}, no K3)")
@@ -2389,16 +2487,18 @@ def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph")
                 dev, _ = device_events(lambda: run.append(counted_run(torch, pred, lines, bw, bs, max_len)))
                 rows, c, _ = run[0]
                 traced = sum(1 for e in dev if e.get("cat") == "kernel" and "decoder_layer_step_kernel" in e["name"])
-                if [strip(r) for r in rows] != ref or c["k2"] != layers * c["steps"] or traced > c["k2"]:
+                # a card-route launch is CARD_KERNELS kernels, each named decoder_layer_step_kernel*
+                kernels = c["k2"] + (decode_step.CARD_KERNELS - 1) * c["k2_card"]
+                if [strip(r) for r in rows] != ref or c["k2"] != layers * c["steps"] or traced > kernels:
                     fail(f"{label}, {path}, profiled: tokens equal {[strip(r) for r in rows] == ref}; the trace "
-                         f"holds {traced} K2 kernels, the counts {c['k2']} launches of {c['steps']} steps x {layers} "
-                         f"layers")
-                if traced == c["k2"]:
+                         f"holds {traced} K2 kernels, the counts {c['k2']} launches ({c['k2_card']} on the card "
+                         f"route, {decode_step.CARD_KERNELS} kernels each) of {c['steps']} steps x {layers} layers")
+                if traced == kernels:
                     break
-                print(f"[{tag}] {label}, {path}, profiled: the trace holds {traced} of the {c['k2']} K2 launches "
+                print(f"[{tag}] {label}, {path}, profiled: the trace holds {traced} of the {kernels} K2 kernels "
                       f"counted ({len(dev)} device events); profiling again")
             else:
-                fail(f"{label}, {path}: {TRACE_ATTEMPTS} traces each short of the {c['k2']} K2 launches counted")
+                fail(f"{label}, {path}: {TRACE_ATTEMPTS} traces each short of the {kernels} K2 kernels counted")
             prof[eager] = busy_ms(dev) if dev else None
             out["eager" if eager else "graph"].update(traced_k2=traced, trace_attempts=attempt + 1)
     finally:
@@ -2458,6 +2558,11 @@ def phase_decode_graph(torch, smi):
                     print(f"[decode_graph] {label}: {len(lines) - n_gold}/{len(lines)} lines token-identical to the "
                           "golden tokens")
                 out["rows"][label] = res
+            # greedy at batch 32 on one bucket: float32 takes K2's card route, bfloat16 the cluster route
+            os.environ["KHMER_OCR_FUSED_HEAD"] = "0"
+            label = f"{dt}, greedy, batch 32, max_len 64"
+            _, out["rows"][label] = decode_paths(torch, pred, card_route_lines(), 1, 32, 64, label,
+                                                 card=dt == "float32")
             print(f"[decode_graph] {dt} Predictor, the 18 lines' rows: {len(pred.graph_cache)} decode shapes cached, "
                   f"their buffers {pred.graph_cache.nbytes / 2**20:.1f} MiB")
             out[f"shapes_{dt}"] = dict(n=len(pred.graph_cache), bytes=pred.graph_cache.nbytes)
@@ -2631,8 +2736,9 @@ def sequential_run(torch, pred, lines, bw, bs, max_len):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: mod.launches for k, mod in kernels.items()}
-    counts.update(steps=pred.decode_steps - steps0, mega=pred.mega_batches - mega0, captures=graphs.captures,
-                  replays=graphs.replays, replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
+    counts.update(k2_card=decode_step.card_launches, steps=pred.decode_steps - steps0,
+                  mega=pred.mega_batches - mega0, captures=graphs.captures, replays=graphs.replays,
+                  replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
     return rows, counts, wall
 
 
@@ -4190,7 +4296,7 @@ def main() -> int:
     p, s = seeded_params(ModelConfig(), 0)
     state = params_from_jax(p, s, ModelConfig(), device="cuda")
     weights = layer_weights(pack_step_params(state["dec"]["layers"][0]))
-    k2_rows, k2_err = phase_k2(torch, weights)
+    k2_rows, k2_err, k2_beside = phase_k2(torch, weights)
     k3_rows, k3_err, k3_resident = phase_k3(torch, state, ModelConfig())
     t0 = time.perf_counter()
     k5 = phase_beam_step(torch, state, ModelConfig(), smi)
@@ -4239,11 +4345,13 @@ def main() -> int:
     print(f"[host] {json.dumps(host)}; the phase took {time.perf_counter() - t0:.1f} s")
 
     from khmer_ocr_torch.models.ocr_model import EXIT_CHECK_EVERY
+    from khmer_ocr_torch.ops.kernels import decode_step
 
     main_len = min(k for k in e2e if isinstance(k, int))
     k1_main = next(r for r in k1_rows if r["shape"] == "2x B=8 T=1024")
     k1b_main = next(r for r in k1b_rows if r["shape"] == "2x B=32 T=512")
     k2_main = next(r for r in k2_rows if r["shape"] == "8x3 w=64 Tm=256")
+    k2_card_main = next(r for r in k2_rows if r["shape"] == "greedy 32x1 w=160 Tm=384")
     k3_main = next(r for r in k3_rows if r["shape"] == "8x3 Tm=128 max_len=64")
     inflight_main = inflight["rows"]["64 real lines, batch 8"]["4"]["counts"]  # the pipeline's request
 
@@ -4276,6 +4384,15 @@ def main() -> int:
               launches_a_replay=cfg.dec_layers * EXIT_CHECK_EVERY,
               traced_launches=decode_graph["rows"]["float32, beam 3, max_len 64"]["graph"]["traced_k2"],
               pos="device int32 (one launch serves every position of a captured graph)"),
+        # launches: the greedy batch of 32 one-bucket lines ([e2e]), every K2 launch of it on the card route; ms: the
+        # card route's at 32 x 1, w 160, Tm 384
+        entry("decoder_layer_card", "decoder_layer_card.cu",
+              tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), e2e["greedy32"]["k2_card"],
+              k2_err, dict(k2_card_main, ms=k2_card_main["card_ms"]), [r for r in k2_rows if r["card_ms"] is not None],
+              kernels_a_launch=decode_step.CARD_KERNELS, cluster_ms=k2_card_main["cluster_ms"],
+              decode_graph_launches=decode_graph["rows"]["float32, greedy, batch 32, max_len 64"]["graph"]["k2_card"],
+              traced_kernels=decode_graph["rows"]["float32, greedy, batch 32, max_len 64"]["graph"]["traced_k2"],
+              beside_convolutions=k2_beside),
         # launches: the flagship's bf16 request by the step loop ([bf16]); the library built with STORAGE_BF16
         entry("decoder_layer_step_bf16", "decoder_layer_step.cu",
               tpu_kernel_site("ops/pallas/decode_step.py", "fused_decoder_layer_step"), bf16["k2_launches"],

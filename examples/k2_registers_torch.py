@@ -147,12 +147,12 @@ def main() -> int:
         for n in (1, 2, 2, 1):
             use(n)
             ck, cv = sk.clone(), sv.clone()
-            out = K2.decoder_layer_step(weights, x, at, ck, cv, mk, mv, mvf, lin, **kw)
+            out = K2.decoder_layer_step_kernel(weights, x, at, ck, cv, mk, mv, mvf, lin, route="cluster", **kw)
             torch.cuda.synchronize()
             outs[n] = torch.cat([out, ck[:, pos], cv[:, pos]], dim=1)
             err[n] = (outs[n] - torch.cat([ref, pk[:, pos], pv[:, pos]], dim=1)).abs().max().item()
-            times[n].append(cs.graph_ms(torch, lambda: K2.decoder_layer_step(weights, x, at, ck, cv, mk, mv, mvf, lin,
-                                                                            **kw)))
+            times[n].append(cs.graph_ms(torch, lambda: K2.decoder_layer_step_kernel(
+                weights, x, at, ck, cv, mk, mv, mvf, lin, route="cluster", **kw)))
         split = geometry.k2_geometry(n_img, lanes, heads, tm)[2] // heads
         rows.append(dict(shape=f"{n_img}x{lanes} w={w} Tm={tm}", ctas_per_head=split,
                          ms={n: sum(t) / len(t) for n, t in times.items()}, runs={n: t for n, t in times.items()},

@@ -10,7 +10,8 @@ source, the ``csrc/`` headers it includes and the flags, so an edited source
 or header rebuilds and an unchanged one is reused. K2 has a second float
 library, ``decoder_layer_step_two_ctas``, whose registers are bounded for
 two CTAs an SM (``-DK2_F32_MIN_BLOCKS=2``; ``geometry.k2_two_ctas_an_sm``
-picks it for launches with more clusters than one CTA an SM holds). ``build()`` starts one
+picks it for launches with more clusters than one CTA an SM holds); its card
+route, ``decoder_layer_card``, is float32 alone. ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them.
 """
 
@@ -35,6 +36,7 @@ SOURCES = {
     "decoder_layer_step": "decoder_layer_step.cu",
     "decoder_layer_step_bf16": "decoder_layer_step.cu",
     "decoder_layer_step_two_ctas": "decoder_layer_step.cu",
+    "decoder_layer_card": "decoder_layer_card.cu",
     "decoder_block": "decoder_block.cu",
     "decoder_block_bf16": "decoder_block.cu",
     "decode_loop": "decode_loop.cu",

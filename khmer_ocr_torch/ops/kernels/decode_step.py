@@ -13,11 +13,19 @@ caller keeps ``0 <= pos < window``, which the kernel cannot check. The
 plain version takes that tensor or a Python int.
 ``weights`` is the dict of ``layer_weights``. ``lineage`` (B, window) int32
 holds image-local beam parents (None for greedy); slot ``pos`` reads the lane
-itself whatever the table says. Any number of lanes: the kernel runs one
-thread-block cluster per image and group of its lanes
-(``geometry.k2_geometry``), one CTA per attention head; in float32 from the
-library bounded for one CTA an SM, or, for launches with more clusters than
-that holds at once, for two (``geometry.k2_two_ctas_an_sm``).
+itself whatever the table says. Any number of lanes. Two routes, which
+``geometry.k2_route`` picks from the launch's shapes, storage type and head:
+the cluster route (``csrc/decoder_layer_step.cu``) runs one thread-block
+cluster per image and group of its lanes (``geometry.k2_geometry``), one CTA
+per attention head; in float32 from the library bounded for one CTA an SM,
+or, for launches with more clusters than that holds at once, for two
+(``geometry.k2_two_ctas_an_sm``). The card route
+(``csrc/decoder_layer_card.cu``: float32, greedy, up to 32 rows, no head)
+spreads every projection's columns over the whole card, so that each weight
+byte is read by one CTA for every row of the batch, and the attention over
+(row, head) CTAs, in a chain of ``CARD_KERNELS`` launches; it takes the
+batches for which the cluster route would need a second wave (greedy
+batches of 31-32 images).
 
 Storage type: x, the caches, the memory K/V and the weight matrices are
 all float32 or all bfloat16 (the serving speed mode); biases, LayerNorm
@@ -53,7 +61,8 @@ import torch
 from ...models.layers import NEG_INF, layer_norm, write_slot
 from ...models.layers import decoder_layer_step as _layer_step_plain
 from . import build
-from .geometry import MAX_CLUSTER, SMEM_LIMIT, k2_geometry, k2_two_ctas_an_sm
+from .geometry import (CARD_MAX_ROWS, MAX_CLUSTER, SMEM_LIMIT, k2_card_fits, k2_card_split, k2_geometry, k2_route,
+                       k2_two_ctas_an_sm)
 
 WEIGHT_FIELDS = (
     "qkv_w", "qkv_b", "so_w", "so_b", "ln1_s", "ln1_b",
@@ -64,30 +73,33 @@ WEIGHT_FIELDS = (
 MATRIX_FIELDS = ("qkv_w", "so_w", "cq_w", "co_w", "l1_w", "l2_w")  # in the storage type; the rest float32
 BLOCK_KINDS = {"finish": 0, "self": 1, "cross": 2, "ffn": 3}
 HEAD_COLS = 128  # the head's vocabulary padded to a multiple of this, as the TPU kernel pads it
+CARD_KERNELS = 7  # kernels one layer step launches on the card route (csrc/decoder_layer_card.cu)
 
-# kernel launches since the last reset_launches(): every K2 launch, then those in bfloat16 and those with the
-# head among them, and the tensor-parallel blocks' launches. A K2 launch inside a CUDA graph's capture launches
-# nothing; the graph's replays launch it (decode/graphs.py moves its count from the capture to each replay).
+# kernel launches since the last reset_launches(): every K2 launch (a layer step, whichever route), then those
+# in bfloat16, those with the head and those of the card route among them, and the tensor-parallel blocks'
+# launches. A K2 launch inside a CUDA graph's capture launches nothing; the graph's replays launch it
+# (decode/graphs.py moves its count from the capture to each replay).
 launches = 0
 bf16_launches = 0
 head_launches = 0
+card_launches = 0
 block_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, bf16_launches, head_launches, block_launches
-    launches = bf16_launches = head_launches = block_launches = 0
+    global launches, bf16_launches, head_launches, card_launches, block_launches
+    launches = bf16_launches = head_launches = card_launches = block_launches = 0
 
 
-def k2_counts() -> tuple[int, int, int]:
-    """(launches, bf16_launches, head_launches) of K2."""
-    return launches, bf16_launches, head_launches
+def k2_counts() -> tuple[int, int, int, int]:
+    """(launches, bf16_launches, head_launches, card_launches) of K2."""
+    return launches, bf16_launches, head_launches, card_launches
 
 
 def add_k2_counts(delta) -> None:
     """Add ``delta`` (as ``k2_counts``) to K2's counts."""
-    global launches, bf16_launches, head_launches
-    launches, bf16_launches, head_launches = (a + d for a, d in zip(k2_counts(), delta))
+    global launches, bf16_launches, head_launches, card_launches
+    launches, bf16_launches, head_launches, card_launches = (a + d for a, d in zip(k2_counts(), delta))
 
 
 def layer_weights(lp: dict) -> dict:
@@ -276,12 +288,13 @@ def _check_operands(name: str, tensors: dict, device, storage: set, cdt) -> None
 
 def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, lineage=None, *,
                               num_heads: int, window: int, lanes: int = 1, split: int | None = None, head=None,
-                              ctas_an_sm: int | None = None):
-    """The kernel on CUDA tensors, with ``geometry.k2_geometry``'s CTAs per
-    head or ``split`` (1 or 2) if given, and in float32 the library bounded
-    for ``geometry.k2_two_ctas_an_sm``'s CTAs an SM or ``ctas_an_sm`` (1 or
-    2) if given."""
-    global launches, bf16_launches, head_launches
+                              ctas_an_sm: int | None = None, route: str | None = None):
+    """The kernel on CUDA tensors, by ``geometry.k2_route``'s route or
+    ``route`` ("card" or "cluster") if given. The cluster route with
+    ``geometry.k2_geometry``'s CTAs per head or ``split`` (1 or 2) if given,
+    and in float32 the library bounded for ``geometry.k2_two_ctas_an_sm``'s
+    CTAs an SM or ``ctas_an_sm`` (1 or 2) if given."""
+    global launches, bf16_launches, head_launches, card_launches
     name = "decoder_layer_step"
     cdt = x.dtype
     if cdt not in (torch.float32, torch.bfloat16):
@@ -320,6 +333,21 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     if lanes < 1 or n_img * lanes != b:
         raise ValueError(f"{name}: {b} rows are not {n_img} images x {lanes} lanes")
     group, clusters, ctas = k2_geometry(n_img, lanes, num_heads, tm)
+    if route is None:  # a lineage at one lane (a beam of 1 called directly) keeps the cluster route
+        route = "cluster" if lineage is not None else k2_route(n_img, lanes, tm, cdt.itemsize, head is not None, d,
+                                                              num_heads, f)
+    if route == "card":
+        if (cdt != torch.float32 or head is not None or not k2_card_fits(d, num_heads, f) or lanes != 1
+                or lineage is not None or b > CARD_MAX_ROWS):
+            raise ValueError(f"{name}: the card route takes float32 greedy batches of at most {CARD_MAX_ROWS} rows "
+                             f"without the head at widths it fits (D={d}, heads={num_heads}, F={f}), got {cdt}, "
+                             f"{b} rows, {lanes} lane(s), lineage {lineage is not None}, head {head is not None}")
+        out = _card_launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, num_heads, f)
+        launches += 1
+        card_launches += 1
+        return out
+    if route != "cluster":
+        raise ValueError(f"{name}: route {route!r}: 'card' or 'cluster'")
     split = ctas // num_heads if split is None else split
     if ctas_an_sm is None:
         ctas_an_sm = 2 if k2_two_ctas_an_sm(clusters, num_heads * split) else 1
@@ -352,6 +380,27 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     bf16_launches += int(cdt == torch.bfloat16)
     head_launches += int(head is not None)
     return out if head is None else (out, logp)
+
+
+def _card_launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, num_heads, f):
+    """The card route's launches on checked operands -> the layer output (B, D)."""
+    b, d = x.shape
+    split = [k2_card_split(n, k) for n, k in ((3 * d, d), (d, d), (f, d), (d, f))]  # qkv, co, l1, l2
+    cols = [nc for nc, _ in split] + [parts for _, parts in split]
+    out = torch.empty_like(x)
+    scratch = torch.empty(b * (5 * d + f + split[-1][1] * d + num_heads * d), dtype=torch.float32, device=x.device)
+    ptrs = [x, self_k, self_v, mem_k, mem_v, mem_valid_f, *(weights[k] for k in WEIGHT_FIELDS), out, scratch]
+    arr = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+    col_arr = (ctypes.c_int * len(cols))(*cols)
+    lib = build.load("decoder_layer_card")
+    fn = lib.decoder_layer_card_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), pos.data_ptr(), ctypes.cast(col_arr, ctypes.c_void_p), b, d,
+             num_heads, f, self_k.shape[1], mem_k.shape[1], stream)
+    build.check(err, "decoder_layer_step (card route)")
+    return out
 
 
 _BLOCK_WEIGHTS = {"self": ("qkv_w", "qkv_b", "so_w"), "cross": ("cq_w", "cq_b", "co_w"),

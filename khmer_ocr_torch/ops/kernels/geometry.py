@@ -146,6 +146,74 @@ def k2_two_ctas_an_sm(clusters: int, ctas_per_cluster: int) -> bool:
     return clusters > ONE_CTA_CLUSTER_SMS // ctas_per_cluster
 
 
+# --- K2's card route (csrc/decoder_layer_card.cu) -------------------------
+
+CARD_NC_MAX = 12    # output columns a projection CTA owns at most
+CARD_WS_MAX = 6144  # floats of a projection CTA's weight slice
+CARD_KC = 384       # input columns a projection CTA stages at once (a LayerNorm's whole row)
+CARD_MAX_ROWS = 32  # greedy rows (one an image) up to which the card route runs, all staged at once
+CARD_MAX_TM = 1024  # memory positions up to which it runs
+
+
+def k2_card_split(n: int, k: int) -> tuple[int, int]:
+    """(columns a CTA owns, parts of the inputs) of the card route's
+    projection of ``k`` inputs to ``n`` outputs: the inputs split into
+    parts of ``CARD_KC`` (one part up to it; each part's CTAs write partial
+    sums that the last phase adds in order), then the fewest columns, a
+    multiple of 4 dividing ``n``, that keep the launch's (n / nc) x parts
+    CTAs within the card's SMs, with a CTA's slice of the weight (k / parts
+    x nc floats) within ``CARD_WS_MAX``; (0, parts) if none does. At D = 384,
+    F = 1536: 12 columns for q|k|v (96 CTAs) and the FFN's first weight
+    (128), 4 for the out-projections and the cross q (96), and 12 columns in
+    4 parts for the FFN's second weight (128)."""
+    parts = max(1, -(-k // CARD_KC))
+    if k % parts or (k // parts) % 4:
+        return 0, parts
+    for nc in range(4, CARD_NC_MAX + 1, 4):
+        if n % nc == 0 and n // nc * parts <= SMS and k // parts * nc <= CARD_WS_MAX:
+            return nc, parts
+    return 0, parts
+
+
+def k2_card_fits(d: int, heads: int, f: int) -> bool:
+    """Whether the card route's kernels take these widths: the LayerNorm's
+    row within one staged chunk, every projection with its columns, heads
+    of 32, 48 or 64 columns (the attention kernels' instantiations)."""
+    if heads < 1 or d % heads or d > CARD_KC or d % 4 or f % 4 or d // heads not in (32, 48, 64):
+        return False
+    return all(k2_card_split(n, k)[0] for n, k in ((3 * d, d), (d, d), (f, d), (d, f)))
+
+
+def k2_route(n_img: int, lanes: int, tm: int, itemsize: int, head: bool, d: int, heads: int, f: int) -> str:
+    """K2's route for one launch: "card" (csrc/decoder_layer_card.cu: each
+    weight byte read by one CTA for every row of the batch, seven launches
+    over the whole card) or "cluster" (csrc/decoder_layer_step.cu: one
+    cluster of a CTA a head for each image and group of lanes).
+
+    The card route takes greedy batches (one lane, no lineage) in float32
+    storage without the fused head, at widths it fits (``k2_card_fits``), up
+    to ``CARD_MAX_ROWS`` rows and ``CARD_MAX_TM`` memory positions, where
+    the cluster route's clusters need more SMs than two CTAs an SM hold at
+    once (a second wave). The crossover (chip_smoke.py [K2], NVIDIA H100
+    80GB HBM3, 700 W, device ms of a replayed launch, card route / cluster
+    route): greedy 32 x 1 at w 160, Tm 384 0.0718 / 0.1213 and 31 x 1 at w
+    64 0.0730 / 0.1042, but 28 x 1 0.0766 / 0.0656 and 24 x 1 0.0716 /
+    0.0610. Each of the card route's launches costs a chain of dependent
+    latencies, about 4-6 us, whatever the batch, so it pays only where the
+    cluster route runs in two waves. Beam batches keep the cluster route:
+    a card route over (image, lane group, head) attention CTAs took 8 x 3 at
+    Tm 256 in 0.0577 ms against 0.0472 and 1 x 3 in 0.0458 against 0.0442. bfloat16
+    storage and the fused head keep the cluster route, which is templated on
+    the storage type and fuses the head (its times: PERF.md's kernel
+    table)."""
+    if itemsize != 4 or head or lanes != 1 or not k2_card_fits(d, heads, f):
+        return "cluster"
+    if n_img > CARD_MAX_ROWS or tm > CARD_MAX_TM:
+        return "cluster"
+    _, clusters, ctas = k2_geometry(n_img, lanes, heads, tm)
+    return "card" if clusters * ctas > 2 * ONE_CTA_CLUSTER_SMS else "cluster"
+
+
 # --- shared memory of the cluster layer (csrc/decoder_cluster.cuh) ---------
 
 NT = 384               # threads per CTA (csrc/decoder_common.cuh)

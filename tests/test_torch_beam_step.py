@@ -269,7 +269,7 @@ if __name__ != "__main__":
 
     def test_graph_counts_move_k5_with_k2(port):
         _, res = port
-        assert res["counts"] == {"after_add": [5, 1, 2, 7], "after_undo": [0, 0, 0, 0]}
+        assert res["counts"] == {"after_add": [5, 1, 2, 3, 7], "after_undo": [0, 0, 0, 0, 0]}
 
 
 # ---- the torch side (run as a script) ------------------------------------------------------------------------------
@@ -371,7 +371,7 @@ def _port_main(tmp: Path) -> None:
 
     decode_step.reset_launches()
     beam_step.reset_launches()
-    graphs.add_kernel_counts((5, 1, 2, 7))
+    graphs.add_kernel_counts((5, 1, 2, 3, 7))
     after_add = list(graphs.kernel_counts())
     graphs.add_kernel_counts(tuple(-d for d in after_add))
     res["counts"] = {"after_add": after_add, "after_undo": list(graphs.kernel_counts())}

@@ -25,7 +25,7 @@ CLUSTER_USERS = ("decoder_layer_step", "decoder_layer_step_bf16", "decoder_layer
                  "decoder_block_bf16", "decode_loop", "decode_loop_bf16")
 # each shared header -> the libraries built from it
 USERS = {
-    "decoder_common.cuh": (*CLUSTER_USERS, "beam_step"),
+    "decoder_common.cuh": (*CLUSTER_USERS, "beam_step", "decoder_layer_card"),
     "decoder_cluster.cuh": CLUSTER_USERS,
     "beam_search.cuh": ("decode_loop", "decode_loop_bf16", "beam_step"),
 }
