@@ -847,7 +847,7 @@ def phase_k3(torch, params, cfg):
 
     from khmer_ocr_torch.config import DecodeConfig
     from khmer_ocr_torch.decode.beam import beam_decode
-    from khmer_ocr_torch.decode.graphs import GraphCache
+    from khmer_ocr_torch.cuda_graphs import GraphCache
     from khmer_ocr_torch.models.ocr_model import pack_decode_params
     from khmer_ocr_torch.ops.kernels import decode_loop as K
     from khmer_ocr_torch.ops.kernels import geometry
@@ -956,7 +956,7 @@ def phase_beam_step(torch, params, cfg, smi):
     import dataclasses
 
     from khmer_ocr_torch.config import DecodeConfig
-    from khmer_ocr_torch.decode import graphs
+    from khmer_ocr_torch.cuda_graphs import GraphCache
     from khmer_ocr_torch.decode.beam import beam_decode, beam_state
     from khmer_ocr_torch.infer.predictor import Predictor
     from khmer_ocr_torch.ops.kernels import beam_step, build
@@ -1009,7 +1009,7 @@ def phase_beam_step(torch, params, cfg, smi):
 
         # the 64-step decode of phase_k3's 8 x 3 and 64 x 3, Tm 128 rows, by the step loop's graphs
         d = cfg.emb_dim
-        cache = graphs.GraphCache()
+        cache = GraphCache()
         step_loop = {}
         for n_img in (8, 64):
             memory = torch.randn(n_img, 128, d, device="cuda", generator=gen) * 0.5
@@ -1074,9 +1074,9 @@ def phase_k4(torch):
     from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.ops.kernels import smem_probe as K
 
-    K.reset_launches()
+    build.reset_launches()
     best, refused = K.probe_max_bytes(log=lambda m: print(f"[K4] {m}"))
-    launches = K.launches
+    launches = build.launches["k4"]
     attr = K.max_optin_bytes(0)
     above = K.try_bytes(best + K.STEP)
     x = K.probe_input()
@@ -1130,20 +1130,19 @@ class PlainLSTM:
 
 def train_counts():
     """Launch counts of the kernels the train step runs (K1, K1b) and of the others."""
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, lstm_backward, smem_probe
+    from khmer_ocr_torch.ops.kernels import build
 
-    return {"k1": lstm.launches, "k1b": lstm_backward.launches,
-            "other": decode_step.launches + decode_loop.launches + smem_probe.launches}
+    return {"k1": build.launches["k1"], "k1b": build.launches["k1b"],
+            "other": sum(build.launches[k] for k in ("k2", "k3", "k4"))}
 
 
 def reset_counts():
     import torch
 
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, lstm_backward, smem_probe
+    from khmer_ocr_torch.ops.kernels import build
 
     torch.cuda.synchronize()
-    for mod in (lstm, lstm_backward, decode_step, decode_loop, smem_probe):
-        mod.reset_launches()
+    build.reset_launches()
 
 
 def padded_lines_batch(chunk_counts, seed: int, labels) -> dict:
@@ -1230,18 +1229,19 @@ def train_graphs_agree(torch, cfg, batch, aug: float, label: str, modes=("graph"
             loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, el))
             param_err = max((a - b).abs().max().item() for a, b in zip(gp, ep))
             k = 1 if mode == "graph" else GRAPH_STEPS
+            a_replay = dict(+entry.graph.launches)
             row = dict(steps=steps, loss_rel=loss_rel, param_err=param_err, k1=counts["k1"], k1b=counts["k1b"],
-                       replays=tgraphs.replays, replayed_steps=tgraphs.replayed_steps, counts_a_replay=entry.counts,
+                       replays=tgraphs.replays, replayed_steps=tgraphs.replayed_steps, counts_a_replay=a_replay,
                        first_losses=[round(v, 6) for v in gl[:3]])
             print(f"[train] {label}, {mode} against eager, {steps} steps: losses rel {loss_rel:.1e}, params "
-                  f"|diff| {param_err:.1e}; launches K1 {counts['k1']}, K1b {counts['k1b']} ({entry.counts} a replay, "
+                  f"|diff| {param_err:.1e}; launches K1 {counts['k1']}, K1b {counts['k1b']} ({a_replay} a replay, "
                   f"{tgraphs.replays} replays of {tgraphs.replayed_steps} steps); losses {row['first_losses']} ...")
             if not (loss_rel <= GRAPH_TOL and param_err <= GRAPH_TOL):
                 fail(f"train graphs ({label}, {mode}): losses rel {loss_rel:.2e}, params {param_err:.2e} "
                      f"against the eager steps")
-            if (counts["k1"], counts["k1b"], counts["other"]) != (steps, steps, 0) or entry.counts != (k, k) \
+            if (counts["k1"], counts["k1b"], counts["other"]) != (steps, steps, 0) or a_replay != {"k1": k, "k1b": k} \
                     or tgraphs.replayed_steps != steps - k:
-                fail(f"train graphs ({label}, {mode}): launches {counts}, {entry.counts} a replay, "
+                fail(f"train graphs ({label}, {mode}): launches {counts}, {a_replay} a replay, "
                      f"{tgraphs.replayed_steps} replayed steps")
             out[mode] = row
             del graphs, entry
@@ -1261,7 +1261,7 @@ def train_step_times(torch, cfg, batch, smi) -> dict:
     peak memory; the graphs' pool and capture time. At matmul precision
     "highest" (train()'s default), and the first two at "default" (TF32
     products and convolutions)."""
-    from khmer_ocr_torch.infer.encode_graph import pool_bytes
+    from khmer_ocr_torch.cuda_graphs import pool_bytes
     from khmer_ocr_torch.train import graphs as tgraphs
     from khmer_ocr_torch.train.graphs import TrainGraphs
     from khmer_ocr_torch.train.step import init_train_state, make_train_multi_step, make_train_step
@@ -1581,7 +1581,7 @@ def layout_step_times(torch, x, y, smi) -> dict:
     from khmer_ocr_torch.detection import graphs as dgraphs
     from khmer_ocr_torch.detection.segformer import SegFormerConfig
     from khmer_ocr_torch.detection.train import make_train_step, segformer_init
-    from khmer_ocr_torch.infer.encode_graph import pool_bytes
+    from khmer_ocr_torch.cuda_graphs import pool_bytes
     from khmer_ocr_torch.precision import matmul_precision
 
     rows: dict = {"eager": [], "graph": []}
@@ -2140,24 +2140,22 @@ def counted_run(torch, pred, lines, bw, bs, max_len):
     """One request with every kernel's launch count set to 0 just before it
     and read just after: (token rows, counts, seconds). K2's count inside
     the decode's CUDA graphs is that of each replay's launches
-    (decode/graphs.py), ``k2_card`` those of them on K2's card route; the
+    (cuda_graphs.py), ``k2_card`` those of them on K2's card route; the
     counts also hold the decode's graph captures and replays and the steps
     the Python loop ran on the card."""
     from khmer_ocr_torch.decode import graphs
-    from khmer_ocr_torch.ops.kernels import beam_step, decode_loop, decode_step, lstm, smem_probe
+    from khmer_ocr_torch.ops.kernels import build
 
-    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe, "k5": beam_step}
     torch.cuda.synchronize()
-    for mod in kernels.values():
-        mod.reset_launches()
+    build.reset_launches()
     graphs.reset_counts()
     steps0, mega0 = pred.decode_steps, pred.mega_batches
     t0 = time.perf_counter()
     rows = pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: mod.launches for k, mod in kernels.items()}
-    counts.update(k2_card=decode_step.card_launches, steps=pred.decode_steps - steps0,
+    counts = {k: build.launches[k] for k in ("k1", "k2", "k3", "k4", "k5", "k2_card")}
+    counts.update(steps=pred.decode_steps - steps0,
                   mega=pred.mega_batches - mega0, captures=graphs.captures, replays=graphs.replays,
                   replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
     return rows, counts, wall
@@ -2478,7 +2476,7 @@ def decode_paths(torch, pred, lines, bw, bs, max_len, label, tag="decode_graph",
         for eager in (False, True):
             pred.eager_decode = eager
             path = "Python loop" if eager else "graphs"
-            # K2's count is derived on the graph path (decode/graphs.py): hold it against the kernels the trace
+            # K2's count is derived on the graph path (cuda_graphs.py): hold it against the kernels the trace
             # holds. The profiler can lose records in a long request (traces of about 125k device events at max_len
             # 256 have held 2584 and 2343 of 2592 K2 launches, the request's tokens equal), so a trace short of the
             # count is profiled again; one with more kernels, or other tokens, fails at once.
@@ -2637,7 +2635,7 @@ def settled_memory(torch) -> tuple[int, int]:
 
 
 def graph_cache_cost(torch, smi, params, stats, lines, bs):
-    """What the decode's graph cache (decode/graphs.py::GraphCache) costs.
+    """What the decode's graph cache (cuda_graphs.GraphCache) costs.
     (1) The trained flagship's default ``Predictor.warmup()`` (256 white
     lines of chunk buckets 1-4, beam 1 and 3, max_len 256, float32): its
     wall, the shapes and bytes it caches, the memory it holds; dropping the
@@ -2646,6 +2644,7 @@ def graph_cache_cost(torch, smi, params, stats, lines, bs):
     so every batch captures its graphs again, against one whose cache holds
     them all and against the Python loop, GRAPH_REPEATS times in turns,
     tokens equal: each miss's cost, the capture of one shape."""
+    from khmer_ocr_torch.cuda_graphs import CACHE_SHARE
     from khmer_ocr_torch.decode import graphs
     from khmer_ocr_torch.infer.predictor import Predictor
 
@@ -2662,11 +2661,11 @@ def graph_cache_cost(torch, smi, params, stats, lines, bs):
     captures = graphs.captures
     alloc1, res1 = settled_memory(torch)
     n, nbytes, budget = len(pred.graph_cache), pred.graph_cache.nbytes, int(
-        graphs.CACHE_SHARE * torch.cuda.get_device_properties(0).total_memory)
+        CACHE_SHARE * torch.cuda.get_device_properties(0).total_memory)
     del pred
     alloc2, res2 = settled_memory(torch)
     print(f"[decode_graph] the flagship's default warmup(): {warm_s:.2f} s, {n} decode shapes, {captures} graphs; "
-          f"their buffers {nbytes / MIB:.1f} MiB (the budget, CACHE_SHARE {graphs.CACHE_SHARE} of the card: "
+          f"their buffers {nbytes / MIB:.1f} MiB (the budget, CACHE_SHARE {CACHE_SHARE} of the card: "
           f"{budget / MIB:.0f} MiB); allocated {alloc0 / MIB:.1f} MiB before the Predictor, {alloc_w / MIB:.1f} with "
           f"its weights, {alloc1 / MIB:.1f} after warmup, {alloc2 / MIB:.1f} after del; reserved {res0 / MIB:.1f} / "
           f"{res_w / MIB:.1f} / {res1 / MIB:.1f} / {res2 / MIB:.1f} MiB, on {smi}")
@@ -2720,12 +2719,10 @@ def sequential_run(torch, pred, lines, bw, bs, max_len):
     before the next is dispatched -> (token rows, counts, seconds), counted
     as counted_run counts."""
     from khmer_ocr_torch.decode import graphs
-    from khmer_ocr_torch.ops.kernels import beam_step, decode_loop, decode_step, lstm, smem_probe
+    from khmer_ocr_torch.ops.kernels import build
 
-    kernels = {"k1": lstm, "k2": decode_step, "k3": decode_loop, "k4": smem_probe, "k5": beam_step}
     torch.cuda.synchronize()
-    for mod in kernels.values():
-        mod.reset_launches()
+    build.reset_launches()
     graphs.reset_counts()
     steps0, mega0 = pred.decode_steps, pred.mega_batches
     t0 = time.perf_counter()
@@ -2735,8 +2732,8 @@ def sequential_run(torch, pred, lines, bw, bs, max_len):
             rows[i] = r
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: mod.launches for k, mod in kernels.items()}
-    counts.update(k2_card=decode_step.card_launches, steps=pred.decode_steps - steps0,
+    counts = {k: build.launches[k] for k in ("k1", "k2", "k3", "k4", "k5", "k2_card")}
+    counts.update(steps=pred.decode_steps - steps0,
                   mega=pred.mega_batches - mega0, captures=graphs.captures, replays=graphs.replays,
                   replayed_steps=graphs.replayed_steps, eager_steps=graphs.eager_steps)
     return rows, counts, wall
@@ -2981,7 +2978,7 @@ def detection_graphs_agree(torch, det, images, pixels, smi) -> dict:
     from khmer_ocr_torch.detection.detector import PRECISION, unpack_maps
     from khmer_ocr_torch.detection.preprocess import prepare_image
     from khmer_ocr_torch.detection.segformer import predict_maps
-    from khmer_ocr_torch.infer.encode_graph import pool_bytes
+    from khmer_ocr_torch.cuda_graphs import pool_bytes
     from khmer_ocr_torch.precision import matmul_precision
 
     def eager(px, out_hw):
@@ -3075,7 +3072,7 @@ def phase_document(torch, smi):
     from khmer_ocr_torch.detection.segformer import SegFormerConfig, predict_maps, save_hf_checkpoint
     from khmer_ocr_torch.infer.api import get_predictor
     from khmer_ocr_torch.metrics import score
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm
+    from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.pipeline.document import run_layout_aware_pipeline
     from khmer_ocr_torch.pipeline.engine import KhmerOCRPipeline
     from khmer_ocr_torch.pipeline.minipdf import extract_pdf_text
@@ -3219,7 +3216,7 @@ def phase_document(torch, smi):
                 took = time.perf_counter() - t0
             finally:
                 del pipe._detect_crops_batch, pipe._recognize
-            return (got, took, {"k1": lstm.launches, "k2": decode_step.launches, "k3": decode_loop.launches},
+            return (got, took, {k: build.launches[k] for k in ("k1", "k2", "k3")},
                     [(name, (a - t0) * 1e3, (b - t0) * 1e3) for name, a, b in spans])
 
         def show(spans_ms) -> str:
@@ -3568,12 +3565,13 @@ def phase_bf16(torch, state, cfg, smi):
 
     from khmer_ocr_torch.config import DecodeConfig, OCRConfig, RuntimeConfig
     from khmer_ocr_torch.decode.beam import beam_decode
-    from khmer_ocr_torch.decode.graphs import GraphCache
+    from khmer_ocr_torch.cuda_graphs import GraphCache
     from khmer_ocr_torch.infer.predictor import Predictor, cast_params
     from khmer_ocr_torch.metrics import score
     from khmer_ocr_torch.models.layers import pack_step_params
     from khmer_ocr_torch.models.ocr_model import pack_decode_params
     from khmer_ocr_torch.ops.kernels import decode_loop as K3
+    from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.ops.kernels import decode_step as K2
     from khmer_ocr_torch.ops.kernels import geometry
 
@@ -3683,7 +3681,7 @@ def phase_bf16(torch, state, cfg, smi):
             with MegaDecode() if mode == "k3" else contextlib.nullcontext():
                 pred.predict_batch_tokens(lines, beam_width=bw, batch_size=bs, max_len=max_len)  # warm-up
                 rows, c, wall = counted_run(torch, pred, lines, bw, bs, max_len)
-            c.update(k2_bf16=K2.bf16_launches)
+            c.update(k2_bf16=build.launches["k2_bf16"])
             strings = [pred.tokenizer.decode(r) for r in rows]
             res = score(names, meta["texts"], strings)
             ref = meta["strings"] if dt == "float32" else meta["bf16_strings"]
@@ -3784,7 +3782,7 @@ def phase_precision(torch, smi):
     pixels = detector.prepare_image(Image.fromarray(page), layout.cfg.image_size)[1]
     alone = layout.packed_maps(pixels)
     held, release, entered = threading.Event(), threading.Event(), {}
-    real_run = layout.graphs.run  # the forward: a replay of the graph the first call captured
+    real_run = layout.graphs.forward  # the forward: a replay of the graph the first call captured
 
     def spy(*args, **kw):  # the forward's own precision, and when it began
         entered.update(t=time.perf_counter(), switches=switches())
@@ -3797,7 +3795,7 @@ def phase_precision(torch, smi):
             entered["released"] = time.perf_counter()
 
     out = []
-    layout.graphs.run = spy
+    layout.graphs.forward = spy
     try:
         h = threading.Thread(target=holder)
         h.start()
@@ -3811,7 +3809,7 @@ def phase_precision(torch, smi):
         h.join(30)
         d.join(30)
     finally:
-        del layout.graphs.run
+        del layout.graphs.forward
     same = bool(out) and np.array_equal(out[0], alone)
     print(f"[precision] packed_maps at 'highest' beside a thread holding 'default': waited {waited} (still out after "
           f"{PRECISION_WAIT} s), began {entered.get('t', 0) - entered.get('released', 0):+.4f} s after the scope "
@@ -3836,6 +3834,7 @@ def phase_head(torch, state, cfg, smi):
     tokens equal to those without it, near-ties excepted, launches counted."""
     from khmer_ocr_torch.infer.predictor import Predictor, cast_params
     from khmer_ocr_torch.models.layers import pack_step_params
+    from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.ops.kernels import decode_step as K2
 
     d, heads, f = cfg.emb_dim, cfg.num_heads, cfg.dec_ffn_dim
@@ -3891,7 +3890,7 @@ def phase_head(torch, state, cfg, smi):
             pred.predict_batch_tokens(lines, beam_width=3, batch_size=8, max_len=64)  # warm-up
             h0 = pred.head_batches
             rows_, c, wall = counted_run(torch, pred, lines, 3, 8, 64)
-            c.update(head=K2.head_launches, head_batches=pred.head_batches - h0)
+            c.update(head=build.launches["k2_head"], head_batches=pred.head_batches - h0)
             runs[mode] = ([strip(r) for r in rows_], c, wall)
     finally:
         if saved is None:
@@ -4069,7 +4068,7 @@ def tp_rank(rank: int, world: int, tmp: Path) -> int:
     from khmer_ocr_torch.convert.from_jax import params_from_jax
     from khmer_ocr_torch.infer.predictor import infer_batch, load_weights, set_parity_mode
     from khmer_ocr_torch.models.ocr_model import forward_train
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm
+    from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.ops.lines import device_chunk, u8_to_unit, unit_normalize
     from khmer_ocr_torch.parallel.mesh import make_mesh, shard_params
     from khmer_ocr_torch.preprocess import Preprocessor
@@ -4105,14 +4104,13 @@ def tp_rank(rank: int, world: int, tmp: Path) -> int:
     serve()  # warm-up
     dist.barrier()
     torch.cuda.synchronize()
-    for mod in (lstm, decode_step, decode_loop):
-        mod.reset_launches()
+    build.reset_launches()
     t0 = time.perf_counter()
     rows = serve()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"k1": lstm.launches, "k2": decode_step.launches, "blocks": decode_step.block_launches,
-              "k3": decode_loop.launches}
+    counts = {"k1": build.launches["k1"], "k2": build.launches["k2"], "blocks": build.launches["k2_block"],
+              "k3": build.launches["k3"]}
     (tmp / f"tp{rank}.json").write_text(json.dumps({"tokens": rows, "counts": counts, "serve_ms": wall * 1e3}))
     dist.barrier()
     dist.destroy_process_group()

@@ -58,6 +58,7 @@ import os
 import torch
 
 from ..config import DecodeConfig, ModelConfig
+from ..cuda_graphs import GraphCache, switches
 from ..models import ocr_model
 from ..models.layers import NEG_INF
 from ..models.ocr_model import decode_hidden, decode_step, init_decode_state, pack_decode_params
@@ -208,7 +209,7 @@ def _beam_shape(packed: dict, memory, memory_pad_mask, model_cfg: ModelConfig, d
 
 def beam_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
                 stats: dict | None = None, model_group=None, eager: bool = False,
-                graph_cache: graphs.GraphCache | None = None):
+                graph_cache: GraphCache | None = None):
     """memory: (B, T, D). Returns the best tokens (B, max_len + 2), <sos> first.
     ``stats`` (optional dict) receives "steps", the decode steps run, "mega",
     the batches (0 or 1) decoded by the whole-decode path (one launch of
@@ -231,11 +232,11 @@ def beam_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, d
     fused_head = use_fused_head(dec_cfg, model_cfg, memory, model_group)
     cache = None
     if memory.is_cuda and ranks == 1 and not eager:
-        cache = graph_cache if graph_cache is not None else graphs.GraphCache()
-    packed = cache.packed(params) if cache is not None else pack_decode_params(params)
+        cache = graph_cache if graph_cache is not None else GraphCache()
+    packed = cache.shared(params, pack_decode_params) if cache is not None else pack_decode_params(params)
     # the shape's key: everything its graphs and buffers were made for but the params
     key = ("beam", b, k, tm, memory.dtype, memory.device, max_len, dec_cfg.sos_idx, dec_cfg.eos_idx, dec_cfg.pad_idx,
-           fused_head, ocr_model.decoder_layer_step, search_step, graphs.precision_key())
+           fused_head, ocr_model.decoder_layer_step, search_step, switches())
     r0 = graphs.replays
     tokens, steps = graphs.decode(
         cache, key, lambda: _beam_shape(packed, memory, memory_pad_mask, model_cfg, dec_cfg, fused_head, model_group),

@@ -19,39 +19,25 @@ state (memory K/V, self caches), shared by the graphs of all its windows.
 Its ``run`` runs a chunk's steps from Python, its ``replay`` the chunk's
 graph; ``decode`` drives either through ``run_chunks``. The Python loop
 (CPU tensors, model groups, or the graphs' oracle) makes a shape for its
-batch and runs it; the graphs keep their shapes in a ``GraphCache``, which
-its owner (a Predictor) holds, so the buffers and graphs die with it. The
-cache evicts the least recently used shapes beyond a budget of bytes
-(``CACHE_SHARE`` of the card's memory unless the owner gives one), counted
-from each shape's buffers. Capture: a shape's first chunk runs once
-eagerly on a side stream (kernels built and loaded, cuBLAS handles made),
-every chunk is then captured with the position set to its first step, and
-the buffers are filled afresh. A capture or replay failure raises; nothing
-falls back to the Python loop.
+batch and runs it; the graphs keep their shapes in a
+``cuda_graphs.GraphCache``, which its owner (a Predictor) holds, so the
+buffers and graphs die with it, each shape counted by its buffers and its
+graphs sharing the cache's one memory pool: replays run one after another on
+one stream and leave their results in their shape's buffers. Capture: a
+shape's first chunk runs once eagerly on the side stream (kernels built and
+loaded, cuBLAS handles made), every chunk is then captured there with the
+position set to its first step (``cuda_graphs.Graph``), and the buffers are
+filled afresh. A capture or replay failure raises; nothing falls back to the
+Python loop.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
-from collections import OrderedDict
-
 import torch
 
-from ..models.ocr_model import EXIT_CHECK_EVERY, decode_windows, memory_kv, pack_decode_params
-from ..ops.kernels import beam_step, decode_step
+from ..cuda_graphs import Graph, GraphCache, capture_lock, on_stream, side_stream, tensor_bytes
+from ..models.ocr_model import EXIT_CHECK_EVERY, decode_windows, memory_kv
 from ..profiling import span
-
-# The share of the card's memory a GraphCache's shapes may hold unless its
-# owner sets a budget. One shape holds its self caches, 2 layers x 2 x rows
-# x lanes x max_len x D x itemsize bytes, and its memory K/V, 2 layers x 2 x
-# rows x Tm x D x itemsize. The flagship's default warmup (256 rows, chunk
-# buckets 1-4, beam 1 and 3, max_len 256, float32) makes 8 shapes of 7598
-# MiB, and a miss, a shape captured again, costs about 75 ms on an H100
-# (PERF.md section 6, chip_smoke.py [decode_graph]): a quarter of an 80 GB
-# card holds that warmup 2.7 times and leaves the rest to the encoder and
-# other models.
-CACHE_SHARE = 0.25
 
 # since the last reset_counts(): graphs captured, graph replays, decode steps
 # run by replays, and steps run by the Python loop on CUDA tensors
@@ -59,23 +45,11 @@ captures = 0
 replays = 0
 replayed_steps = 0
 eager_steps = 0
-_SIDE: dict = {}  # the side stream of each (device, role)
 
 
 def reset_counts() -> None:
     global captures, replays, replayed_steps, eager_steps
     captures = replays = replayed_steps = eager_steps = 0
-
-
-def kernel_counts() -> tuple:
-    """K2's counts (``decode_step.k2_counts``), then K5's launches."""
-    return (*decode_step.k2_counts(), beam_step.launches)
-
-
-def add_kernel_counts(delta) -> None:
-    """Add ``delta`` (as ``kernel_counts``) to K2's and K5's counts."""
-    decode_step.add_k2_counts(delta[:-1])
-    beam_step.add_launches(delta[-1])
 
 
 def step_chunks(max_len: int, every: int = EXIT_CHECK_EVERY) -> list[tuple[int, int, int]]:
@@ -137,34 +111,6 @@ def fill_decode_state(state: dict, packed: dict, memory, pad_mask) -> None:
     state["mem_valid_f"].copy_(~pad_mask)
 
 
-def precision_key() -> tuple:
-    """torch's switches that pick the kernels a captured matmul replays."""
-    m = torch.backends.cuda.matmul
-    return m.allow_tf32, m.allow_bf16_reduced_precision_reduction, torch.get_float32_matmul_precision()
-
-
-def _side_stream(device: torch.device, role: str = "decode"):
-    """The stream each device's eager chunks and captures of ``role`` run
-    on: one, so that the handles and workspaces made for it (cuBLAS keeps
-    one a stream) are made once, outside any capture's memory pool. The
-    decode and the train steps share the "decode" stream; a role whose
-    captures may run on another thread beside theirs (the detection) takes
-    a stream of its own, since two captures on one stream cannot overlap."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if (idx, role) not in _SIDE:
-        _SIDE[idx, role] = torch.cuda.Stream(idx)
-    return _SIDE[idx, role]
-
-
-def tensor_bytes(tree) -> int:
-    """The bytes of the tensors in nested dicts, lists and tuples."""
-    if isinstance(tree, torch.Tensor):
-        return tree.nbytes
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    return sum(tensor_bytes(t) for t in tree) if isinstance(tree, (list, tuple)) else 0
-
-
 class StepGraphs:
     """One decode shape. ``st`` is its search state, whose 0-d int32
     ``st["pos"]`` is the device position, and ``state`` its decode state,
@@ -183,117 +129,36 @@ class StepGraphs:
     def set_pos(self, pos: int) -> None:
         self.st["pos"].fill_(pos)
 
-    def prepare(self, max_len: int, inputs: tuple, pool, lock=None) -> None:
+    def prepare(self, max_len: int, inputs: tuple, pool) -> None:
         """Capture the graph of every chunk shape of a decode of ``max_len``
-        steps not captured yet (into the memory pool ``pool``, holding
-        ``lock`` meanwhile), then fill the buffers with ``inputs``' initial
-        state."""
+        steps not captured yet (into the memory pool ``pool``), then fill the
+        buffers with ``inputs``' initial state."""
         todo = [c for c in step_chunks(max_len) if (c[0], c[2]) not in self.graphs]
         if todo:
-            with lock or contextlib.nullcontext(), span("khmer_ocr.decode.capture"):
+            with capture_lock, span("khmer_ocr.decode.capture"):
                 self._capture(todo, inputs, pool)
         self.fill(*inputs)
 
     def _capture(self, todo: list, inputs: tuple, pool) -> None:
         global captures
         self.fill(*inputs)  # valid tokens and lineage for the eager chunk
-        side = _side_stream(self.device)
+        side = side_stream(self.device)
         if not self.graphs:  # one eager chunk first: kernels loaded, handles made, outside any capture
             w, start, n = todo[0]
             self.set_pos(start)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self.run(w, n)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            on_stream(side, lambda: self.run(w, n))
         for w, start, n in todo:
             if (w, n) in self.graphs:
                 continue
             self.set_pos(start)
-            before = kernel_counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
-                self.run(w, n)
-            # the capture launched nothing: its K2 and K5 counts move to each replay
-            delta = tuple(a - b for a, b in zip(kernel_counts(), before))
-            add_kernel_counts(tuple(-d for d in delta))
-            self.graphs[(w, n)] = (graph, delta)
+            self.graphs[(w, n)] = Graph(lambda: self.run(w, n), side, pool)
             captures += 1
 
     def replay(self, w: int, n: int) -> None:
         global replays, replayed_steps
-        graph, delta = self.graphs[(w, n)]
-        graph.replay()
-        add_kernel_counts(delta)
+        self.graphs[(w, n)].replay()
         replays += 1
         replayed_steps += n
-
-
-class GraphCache:
-    """The decode shapes of one owner and the weights they read: the owner
-    (a Predictor) holds the cache, so its buffers and graphs are freed with
-    it. ``budget``: the bytes its shapes' buffers may hold, the least
-    recently used shapes evicted beyond it (None: ``CACHE_SHARE`` of the
-    card's memory); a shape larger than the budget is still kept, alone.
-    The decode's graphs share its one memory pool (``pool()``): replays run
-    one after another on one stream and leave their results in their
-    shape's buffers, so their intermediates may share memory (the encode
-    graphs of infer/encode_graph.py, in a cache of their own, each take a
-    pool of their own). ``capture_lock`` is held around every
-    capture; a thread that launches work beside the decode (the Predictor's
-    dispatch stage) holds it around its launches, so that no other thread's
-    call lands inside a capture."""
-
-    def __init__(self, budget: int | None = None):
-        self.budget = budget
-        self.shapes: OrderedDict = OrderedDict()
-        self.lock = threading.Lock()
-        self.capture_lock = threading.Lock()
-        self._params = self._packed = self._pool = None
-
-    def __len__(self) -> int:
-        return len(self.shapes)
-
-    @property
-    def nbytes(self) -> int:
-        return sum(s.nbytes for s in self.shapes.values())
-
-    def bind(self, params) -> None:
-        """Other params than the last drop every shape made for those.
-        ``params``: the weights, or a tuple of the objects the graphs read
-        and write (compared item by item)."""
-        last = self._params
-        same = params is last or (isinstance(params, tuple) and isinstance(last, tuple) and len(params) == len(last)
-                                  and all(a is b for a, b in zip(params, last)))
-        if not same:
-            self.shapes.clear()
-            self._params, self._packed = params, None
-
-    def packed(self, params: dict) -> dict:
-        """``pack_decode_params(params)``, made once for the shapes to share;
-        other params drop every shape made for the old ones."""
-        self.bind(params)
-        if self._packed is None:
-            self._packed = pack_decode_params(params)
-        return self._packed
-
-    def get(self, key, make) -> StepGraphs:
-        """The shape of ``key``, made by ``make()`` the first time."""
-        sg = self.shapes.get(key)
-        if sg is None:
-            sg = make()
-            budget = self.budget
-            if budget is None:
-                budget = int(CACHE_SHARE * torch.cuda.get_device_properties(sg.device).total_memory)
-            while self.shapes and self.nbytes + sg.nbytes > budget:
-                self.shapes.popitem(last=False)
-            self.shapes[key] = sg
-        self.shapes.move_to_end(key)
-        return sg
-
-    def pool(self):
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        return self._pool
 
 
 def decode(cache: GraphCache | None, key, make, inputs: tuple, max_len: int, finished, answer):
@@ -312,6 +177,6 @@ def decode(cache: GraphCache | None, key, make, inputs: tuple, max_len: int, fin
         return answer(sg.st), steps
     with cache.lock, torch.inference_mode():
         sg = cache.get(key, make)
-        sg.prepare(max_len, inputs, cache.pool(), cache.capture_lock)
+        sg.prepare(max_len, inputs, cache.pool())
         steps = run_chunks(max_len, sg.cache_len, lambda: finished(sg.st), sg.replay)
         return answer(sg.st), steps

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..config import DecodeConfig, ModelConfig
+from ..cuda_graphs import GraphCache, switches
 from ..models import ocr_model
 from ..models.ocr_model import decode_step, init_decode_state, pack_decode_params
 from ..parallel.mesh import world_of
@@ -74,7 +75,7 @@ def _greedy_shape(packed: dict, memory, memory_pad_mask, model_cfg: ModelConfig,
 
 def greedy_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig, dec_cfg: DecodeConfig,
                   stats: dict | None = None, model_group=None, eager: bool = False,
-                  graph_cache: graphs.GraphCache | None = None):
+                  graph_cache: GraphCache | None = None):
     """memory: (B, T, D) -> tokens (B, max_len + 1) with the leading <sos>.
     ``stats`` (optional dict) receives "steps": the decode steps run, and
     "replays": the CUDA graph replays that ran them (0 for the Python
@@ -87,10 +88,10 @@ def greedy_decode(params: dict, memory, memory_pad_mask, model_cfg: ModelConfig,
     max_len = dec_cfg.max_len
     cache = None
     if memory.is_cuda and world_of(model_group)[1] == 1 and not eager:
-        cache = graph_cache if graph_cache is not None else graphs.GraphCache()
-    packed = cache.packed(params) if cache is not None else pack_decode_params(params)
+        cache = graph_cache if graph_cache is not None else GraphCache()
+    packed = cache.shared(params, pack_decode_params) if cache is not None else pack_decode_params(params)
     key = ("greedy", b, tm, memory.dtype, memory.device, max_len, dec_cfg.sos_idx, dec_cfg.eos_idx, dec_cfg.pad_idx,
-           ocr_model.decoder_layer_step, graphs.precision_key())
+           ocr_model.decoder_layer_step, switches())
     r0 = graphs.replays
     tokens, steps = graphs.decode(
         cache, key, lambda: _greedy_shape(packed, memory, memory_pad_mask, model_cfg, dec_cfg, model_group),

@@ -77,7 +77,7 @@ class LayoutInference:
     ``load_hf_checkpoint``. The constructor puts the model in eval mode and
     sets no global switch; each forward runs under ``PRECISION``, on the
     card through ``graphs`` (a DetectionGraphs bounded by
-    ``decode.graphs.CACHE_SHARE`` of the card's memory)."""
+    ``cuda_graphs.CACHE_SHARE`` of the card's memory)."""
 
     def __init__(self, model_dir: str | Path | None, config: LayoutConfig | None = None, params=None,
                  seg_cfg: SegFormerConfig | None = None, device=None):
@@ -98,7 +98,7 @@ class LayoutInference:
         body, x = maps_body(self.model, out_hw, compact), torch.from_numpy(pixels)
         with matmul_precision(PRECISION):
             if self.device.type == "cuda":
-                maps = self.graphs.run(body, self.model, x, out_hw, compact)
+                maps = self.graphs.forward(body, self.model, x, out_hw, compact)
             else:
                 maps = body(x.to(self.device))
         return tuple(m.numpy() for m in maps)

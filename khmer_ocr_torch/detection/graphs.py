@@ -2,16 +2,14 @@
 counterpart of the JAX package's jitted SegFormer train step and of its
 jitted forward, one program per (configuration, output size, packing).
 
-Both reuse ``train/graphs.py::StepGraph``: a key's first call runs eagerly
-on a side stream (cuDNN's algorithm choice, cuBLAS's and cuDNN's handles
-and workspaces made outside any capture), then is captured on that stream
-with ``capture_error_mode="thread_local"``; every later call of the key
-copies its inputs into the graph's static buffers and replays on the
-caller's current stream. Every output is a static buffer outside the
-graphs' memory pool and nothing allocated in a capture outlives it, so the
-graphs of one cache share one pool. A capture or replay failure raises;
-nothing falls back to the eager path. CPU tensors raise ``ValueError``: the
-CPU runs the eager path, which is the oracle.
+Both are ``cuda_graphs.StepGraph``s: a key's first call runs eagerly on a
+side stream (cuDNN's algorithm choice, cuBLAS's and cuDNN's handles and
+workspaces made outside any capture), then is captured on that stream;
+every later call of the key copies its inputs into the graph's static
+buffers and replays on the caller's current stream. Every output is a
+static buffer outside the graphs' memory pool and nothing allocated in a
+capture outlives it, so the graphs of one cache share one pool. CPU tensors
+raise ``ValueError``: the CPU runs the eager path, which is the oracle.
 
 - ``LayoutTrainGraphs``: the train step (detection/train.py::step_body:
   the train-mode forward, ``torch.autograd.grad``, Adam with its learning
@@ -27,11 +25,9 @@ CPU runs the eager path, which is the oracle.
   detects on a worker thread while the main thread captures and replays
   the decode's graphs on the decode's side stream.
 
-A key holds torch's matmul and cuDNN switches (a captured graph replays
-the kernels they picked) and the model's train/eval mode (a train-mode
-forward moves the BatchNorm pair). Each cache is a ``GraphCache``
-(decode/graphs.py) bounded by bytes, a key counted by its static buffers
-and by what its capture added to the pool; the JAX package keeps its
+A key holds torch's switches and the model's train/eval mode (a
+train-mode forward moves the BatchNorm pair). Each cache is a
+``cuda_graphs.GraphCache`` bounded by bytes; the JAX package keeps its
 jitted programs for the process.
 """
 
@@ -41,8 +37,7 @@ import logging
 
 import torch
 
-from ..decode.graphs import GraphCache, precision_key
-from ..train.graphs import StepGraph
+from ..cuda_graphs import GraphCache, StepGraph, side_stream, switches
 
 logger = logging.getLogger(__name__)
 
@@ -65,15 +60,11 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the graphs run on a CUDA device, got a tensor on {t.device}")
 
 
-def _switches(model) -> tuple:
-    return model.training, precision_key(), torch.backends.cudnn.allow_tf32
-
-
 def train_key(model, images: torch.Tensor, labels: torch.Tensor) -> tuple:
     """The key of a train step: the batch's shapes and dtypes, the model's
-    mode and torch's matmul and cuDNN switches. The learning rate is an
-    input, as the JAX package traces it."""
-    return "step", tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype, *_switches(model)
+    mode and torch's switches. The learning rate is an input, as the JAX
+    package traces it."""
+    return "step", tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype, model.training, switches()
 
 
 def forward_key(model, pixels: torch.Tensor, out_hw, compact: bool) -> tuple:
@@ -81,48 +72,45 @@ def forward_key(model, pixels: torch.Tensor, out_hw, compact: bool) -> tuple:
     the packing (or the two exact maps), the model's mode and torch's
     switches."""
     return ("forward", tuple(pixels.shape), pixels.dtype, tuple(int(v) for v in out_hw), bool(compact),
-            *_switches(model))
+            model.training, switches())
 
 
 class LayoutTrainGraphs(GraphCache):
     """The captured layout train steps of one owner (see the module's
     docstring). ``budget``: the bytes its keys may hold (None:
-    ``decode.graphs.CACHE_SHARE`` of the card's memory)."""
+    ``cuda_graphs.CACHE_SHARE`` of the card's memory)."""
 
-    def run(self, body, model, opt_state: dict, images: torch.Tensor, labels: torch.Tensor,
-            scalars: torch.Tensor) -> torch.Tensor:
+    def step(self, body, model, opt_state: dict, images: torch.Tensor, labels: torch.Tensor,
+             scalars: torch.Tensor) -> torch.Tensor:
         """``body(model, opt_state, images, labels, scalars)`` through the
         graph of its key, captured at the key's first batch -> the loss, a
         0-d tensor of its own."""
         global step_captures, step_replays
         require_cuda("LayoutTrainGraphs", images, labels, scalars)
-        key = train_key(model, images, labels)
         inputs = {"images": images, "labels": labels, "scalars": scalars}
-        with self.lock:
-            self.bind((next(model.parameters()), opt_state["mu"]))
-            graph = self.shapes.get(key)
-            if graph is not None:
-                self.shapes.move_to_end(key)
-                graph.replay(inputs)
-                step_replays += 1
-            else:
-                def run(inp):
-                    return (body(model, opt_state, inp["images"], inp["labels"], inp["scalars"]),)
 
-                with self.capture_lock:
-                    graph = self.get(key, lambda: StepGraph(run, inputs, images.device, self.pool()))
-                step_captures += 1
-                logger.info("captured the layout train step for %s in %.2f s; the pool grew by %.1f MiB",
-                            tuple(images.shape), graph.capture_s, graph.pool_added / 2**20)
-            return graph.outputs[0].clone()
+        def make():
+            graph = StepGraph(lambda inp: (body(model, opt_state, inp["images"], inp["labels"], inp["scalars"]),),
+                              inputs, images.device, side_stream(images.device), self.pool())
+            logger.info("captured the layout train step for %s in %.2f s; the pool grew by %.1f MiB",
+                        tuple(images.shape), graph.capture_s, graph.pool_added / 2**20)
+            return graph
+
+        loss, captured = self.run(train_key(model, images, labels), (next(model.parameters()), opt_state["mu"]),
+                                  inputs, make, lambda g: g.outputs[0].clone())
+        if captured:
+            step_captures += 1
+        else:
+            step_replays += 1
+        return loss
 
 
 class DetectionGraphs(GraphCache):
     """The captured forwards of one ``LayoutInference`` (see the module's
     docstring). ``budget``: the bytes its keys may hold (None:
-    ``decode.graphs.CACHE_SHARE`` of the card's memory)."""
+    ``cuda_graphs.CACHE_SHARE`` of the card's memory)."""
 
-    def run(self, body, model, pixels: torch.Tensor, out_hw, compact: bool) -> tuple:
+    def forward(self, body, model, pixels: torch.Tensor, out_hw, compact: bool) -> tuple:
         """``body(pixels on the card) -> tuple of maps`` (the forward of
         ``model`` at ``out_hw`` and ``compact``) through the graph of its
         key; ``pixels`` on the host are copied into its static input. ->
@@ -132,20 +120,19 @@ class DetectionGraphs(GraphCache):
         device = next(model.parameters()).device
         if device.type != "cuda":
             raise ValueError(f"DetectionGraphs: the graphs run on a CUDA device, the model is on {device}")
-        key = forward_key(model, pixels, out_hw, compact)
         inputs = {"pixels": pixels}
-        with self.lock:
-            self.bind(next(model.parameters()))
-            graph = self.shapes.get(key)
-            if graph is not None:
-                self.shapes.move_to_end(key)
-                graph.replay(inputs)
-                forward_replays += 1
-            else:
-                with self.capture_lock:
-                    graph = self.get(key, lambda: StepGraph(lambda inp: body(inp["pixels"]), inputs, device,
-                                                            self.pool(), role="detection"))
-                forward_captures += 1
-                logger.info("captured the layout forward for %s -> %s in %.2f s: %.1f MiB with the pool's growth",
-                            tuple(pixels.shape), tuple(out_hw), graph.capture_s, graph.nbytes / 2**20)
-            return tuple(t.cpu() for t in graph.outputs)
+
+        def make():
+            graph = StepGraph(lambda inp: body(inp["pixels"]), inputs, device, side_stream(device, "detection"),
+                              self.pool())
+            logger.info("captured the layout forward for %s -> %s in %.2f s: %.1f MiB with the pool's growth",
+                        tuple(pixels.shape), tuple(out_hw), graph.capture_s, graph.nbytes / 2**20)
+            return graph
+
+        maps, captured = self.run(forward_key(model, pixels, out_hw, compact), next(model.parameters()), inputs,
+                                  make, lambda g: tuple(t.cpu() for t in g.outputs))
+        if captured:
+            forward_captures += 1
+        else:
+            forward_replays += 1
+        return maps

@@ -132,8 +132,8 @@ def make_train_step(model: SegFormer, lr: float, *, graphs=None):
         if graphs is None:
             return step_body(model, opt_state, images, labels, step_scalars(opt_state, [lr], 0.9, 0.999, device))
         require_cuda("make_train_step(graphs=...)", images, labels)  # before Adam's count moves
-        return graphs.run(step_body, model, opt_state, images, labels,
-                          step_scalars(opt_state, [lr], 0.9, 0.999, device))
+        return graphs.step(step_body, model, opt_state, images, labels,
+                           step_scalars(opt_state, [lr], 0.9, 0.999, device))
 
     step.opt_state = opt_state
     return step

@@ -16,18 +16,16 @@ about 4.4 MB a chunk for the flagship (PERF.md, section 6). So only
 shapes of at most ``MAX_CHUNKS`` chunks (rows x chunks a row) are
 captured, where the launches weigh most against the encode's device time;
 larger ones run eagerly. An owner keeps its encode graphs in a
-``GraphCache`` of their own (decode/graphs.py), apart from the decode's,
-each graph counted by its input buffers and its pool, and freed with it. K1's launch in a capture moves to each
-replay, as K2's do in the decode's graphs.
+``cuda_graphs.GraphCache`` of their own, apart from the decode's, each
+graph counted by its input buffers and its pool, and freed with it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..decode.graphs import GraphCache, precision_key, tensor_bytes
+from ..cuda_graphs import Graph, GraphCache, pool_bytes, switches, tensor_bytes
 from ..models import bilstm
-from ..ops.kernels import lstm
 from ..profiling import span
 
 # the largest shape whose encode is captured: rows x chunks a row (8 rows of 8 chunks, one row of 64)
@@ -41,11 +39,10 @@ def reset_counts() -> None:
     captures = replays = 0
 
 
-def pool_bytes(pool) -> int:
-    """The bytes of the segments the caching allocator holds for the graph
-    memory pool ``pool``."""
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+def encode_key(params: dict, lines: torch.Tensor) -> tuple:
+    """The key of an encode: the batch's shape and device, the weights'
+    dtype, the recurrence the BiLSTM runs and torch's switches."""
+    return tuple(lines.shape), lines.device, params["patch"]["proj"]["w"].dtype, bilstm.lstm_recurrence, switches()
 
 
 class EncodeGraph:
@@ -56,28 +53,16 @@ class EncodeGraph:
     outputs)."""
 
     def __init__(self, encode, lines: torch.Tensor, counts: torch.Tensor):
-        global captures
         self.device = lines.device
         self.lines, self.counts = lines.clone(), counts.clone()
-        k1 = lstm.launches
-        self.graph = torch.cuda.CUDAGraph()
-        with span("khmer_ocr.encode.capture"), \
-                torch.cuda.graph(self.graph, stream=torch.cuda.current_stream(self.device),
-                                 capture_error_mode="thread_local"):
-            self.memory, self.pad = encode(self.lines, self.counts)
-        self.k1 = lstm.launches - k1  # the capture launched nothing: its K1 count moves to each replay
-        lstm.launches = k1
-        self.nbytes = tensor_bytes([self.lines, self.counts]) + pool_bytes(self.graph.pool())
-        captures += 1
+        with span("khmer_ocr.encode.capture"):
+            self.graph = Graph(lambda: encode(self.lines, self.counts), torch.cuda.current_stream(self.device))
+        self.nbytes = tensor_bytes([self.lines, self.counts]) + pool_bytes(self.graph.graph.pool())
 
-    def __call__(self, lines: torch.Tensor, counts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        global replays
-        self.lines.copy_(lines)
-        self.counts.copy_(counts)
+    def replay(self, inputs: dict) -> None:
+        self.lines.copy_(inputs["lines"])
+        self.counts.copy_(inputs["counts"])
         self.graph.replay()
-        lstm.launches += self.k1
-        replays += 1
-        return self.memory.clone(), self.pad.clone()
 
 
 def encode_graphed(cache: GraphCache, params: dict, encode, lines: torch.Tensor, counts: torch.Tensor):
@@ -87,12 +72,17 @@ def encode_graphed(cache: GraphCache, params: dict, encode, lines: torch.Tensor,
     cuDNN's and cuBLAS's workspaces made for this stream outside any
     capture) and is then captured; its first batch keeps the eager result.
     Other params drop every graph made for the old ones."""
-    key = (tuple(lines.shape), lines.device, params["patch"]["proj"]["w"].dtype, bilstm.lstm_recurrence,
-           precision_key(), torch.backends.cudnn.allow_tf32)
-    with cache.lock:
-        cache.bind(params)
-        if key in cache.shapes:
-            return cache.get(key, None)(lines, counts)
-        out = encode(lines, counts)
-        cache.get(key, lambda: EncodeGraph(encode, lines, counts))
-        return out
+    global captures, replays
+    eager = []
+
+    def make():
+        eager.append(encode(lines, counts))
+        return EncodeGraph(encode, lines, counts)
+
+    out, captured = cache.run(encode_key(params, lines), params, {"lines": lines, "counts": counts}, make,
+                              lambda g: eager[0] if eager else tuple(t.clone() for t in g.graph.out))
+    if captured:
+        captures += 1
+    else:
+        replays += 1
+    return out

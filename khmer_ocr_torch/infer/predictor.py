@@ -73,8 +73,8 @@ import torch
 
 from ..config import DecodeConfig, ModelConfig, OCRConfig
 from ..convert.from_jax import load_npz, params_from_jax, params_to_jax
+from ..cuda_graphs import GraphCache, capture_lock
 from ..decode.beam import beam_decode
-from ..decode.graphs import GraphCache
 from ..decode.greedy import greedy_decode
 from ..models.ocr_model import encode
 from ..ops.lines import device_chunk, u8_to_unit, unit_normalize
@@ -155,7 +155,7 @@ def infer_batch(params: dict, lines: torch.Tensor, counts: torch.Tensor, model_c
     ``params`` this rank's part. ``stats`` receives the decode's counts.
     ``eager``: the decode's Python step loop on the card too, in place of
     its CUDA graphs (the graphs' oracle); ``graph_cache``: where the graphs
-    are kept (decode/graphs.py::GraphCache; None: for this call alone).
+    are kept (cuda_graphs.GraphCache; None: for this call alone).
     ``encoded``: these lines' (memory, pad mask) from ``encode_batch``,
     where the caller encoded them already (``predict_batch``'s dispatch
     stage); only the decode runs then."""
@@ -274,9 +274,9 @@ class Predictor:
     group, this rank on ``device``; every rank must call with the same
     lines. ``config.runtime.compute_dtype`` and ``matmul_precision`` pick
     parity or speed mode (module docstring). The decode's CUDA graphs are
-    kept in ``graph_cache`` (decode/graphs.py::GraphCache), freed with the
+    kept in ``graph_cache`` (a cuda_graphs.GraphCache), freed with the
     Predictor; ``graph_cache_bytes`` bounds the bytes of their buffers
-    (None: ``graphs.CACHE_SHARE`` of the card's memory). ``eager_decode``:
+    (None: ``cuda_graphs.CACHE_SHARE`` of the card's memory). ``eager_decode``:
     decode with the Python step loop on the card too, not its CUDA graphs
     (the graphs' oracle; no serving path sets it). ``predict_batch``'s
     dispatch stage replays the encode of each shape of at most
@@ -376,12 +376,11 @@ class Predictor:
         """One batch through the dispatch stage, on the thread's current
         stream: padded, shipped and encoded (on the card by its shape's CUDA
         graph) -> (batch, true size, lines, counts, memory, pad mask, the
-        event after its encode or None on the CPU). The decode cache's
-        capture lock is held throughout, so that none of these launches
-        lands inside a capture of the decode's, nor one of the decode's in
-        an encode's capture."""
-        with span("khmer_ocr.dispatch"), matmul_precision(self.config.runtime.matmul_precision), \
-                self.graph_cache.capture_lock:
+        event after its encode or None on the CPU). ``cuda_graphs.capture_lock``
+        is held throughout, so that none of these launches lands inside a
+        capture of the decode's, nor one of the decode's in an encode's
+        capture."""
+        with span("khmer_ocr.dispatch"), matmul_precision(self.config.runtime.matmul_precision), capture_lock:
             lines, counts, b = self._to_device_batch(batch)
             encode = lambda l, c: encode_batch(self.params, l, c, self.model_cfg, self._chunk_geom)  # noqa: E731
             if lines.shape[0] * batch.bucket_n > encode_graph.MAX_CHUNKS:  # too large to capture

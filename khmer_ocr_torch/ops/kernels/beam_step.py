@@ -40,20 +40,6 @@ from .geometry import SMEM_LIMIT
 
 MAX_LANES = 32  # csrc/beam_step.cu::MAX_LANES
 
-# kernel launches since the last reset_launches(). A launch inside a CUDA graph's capture launches nothing; the
-# graph's replays launch it (decode/graphs.py moves the count from the capture to each replay).
-launches = 0
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
-
-def add_launches(n: int) -> None:
-    global launches
-    launches += n
-
 
 def search_step(st: dict, x: torch.Tensor, pos: torch.Tensor, dec_cfg: DecodeConfig, *, log_probs: bool,
                 vocab: int | None = None) -> None:
@@ -91,7 +77,6 @@ def smem_bytes(k: int, lp: int, c: int) -> int:
 def search_step_kernel(st: dict, x: torch.Tensor, pos: torch.Tensor, dec_cfg: DecodeConfig, *, log_probs: bool,
                        vocab: int | None = None) -> None:
     """The kernel on CUDA tensors: one launch, the state updated in place."""
-    global launches
     name = "beam_step"
     b, k = st["scores"].shape
     lp, c = st["tokens"].shape[2], st["lineage"].shape[2]
@@ -129,4 +114,4 @@ def search_step_kernel(st: dict, x: torch.Tensor, pos: torch.Tensor, dec_cfg: De
     err = _launcher()(ctypes.cast(arr, ctypes.c_void_p), b, k, v, vx, lp, c, dec_cfg.eos_idx, int(not log_probs),
                       stream)
     build.check(err, name)
-    launches += 1
+    build.count_launch(stream, k5=1)

@@ -13,10 +13,17 @@ two CTAs an SM (``-DK2_F32_MIN_BLOCKS=2``; ``geometry.k2_two_ctas_an_sm``
 picks it for launches with more clusters than one CTA an SM holds); its card
 route, ``decoder_layer_card``, is float32 alone. ``build()`` starts one
 ``nvcc`` per missing library, all at once, and waits for them.
+
+Every kernel wrapper counts its launches into the one registry here,
+``launches``, by ``count_launch``. A launch on a stream that a CUDA graph
+captures launches nothing: it counts to that capture (``capturing``),
+whichever thread made it (the autograd engine runs a backward on a thread
+of its own), and the graph's replays add it (cuda_graphs.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +31,7 @@ import re
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -50,6 +58,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# kernel launches since the last reset_launches(), by counter: "k1" (lstm), "k1b" (lstm_backward), "k2" (every
+# decoder layer step, whichever route), of which "k2_bf16" in bfloat16, "k2_head" with the head fused and
+# "k2_card" on the card route, "k2_block" (the tensor-parallel blocks), "k3" (decode_loop), "k4" (smem_probe),
+# "k5" (beam_step)
+launches: Counter = Counter()
+_CAPTURES: dict[int, Counter] = {}  # the launches counted to each capturing stream's capture, by stream handle
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # compiler output (ptxas register and shared-memory report) of this process's builds
@@ -148,6 +163,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def count_launch(stream: int, **counts: int) -> None:
+    """Add ``counts`` (counter: launches) of launches on the stream handle
+    ``stream`` to the registry, or to the capture of that stream."""
+    capture = _CAPTURES.get(stream)
+    (launches if capture is None else capture).update(counts)
+
+
+@contextlib.contextmanager
+def capturing(stream: int):
+    """Within: launches on the stream handle ``stream`` (a capture's) count
+    to the Counter yielded, not to the registry."""
+    _CAPTURES[stream] = counts = Counter()
+    try:
+        yield counts
+    finally:
+        del _CAPTURES[stream]
 
 
 def check(err: int, name: str) -> None:

@@ -41,13 +41,6 @@ from .geometry import MAX_CLUSTER, SMEM_LIMIT, k3_geometry, k3_smem_bytes, k3_vo
 
 MIN_BEAM, MAX_BEAM, MAX_VOCAB, MAX_TM, MAX_LEN = 2, 4, 128, 128, 64
 
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
 
 def should_use_megakernel(k: int, max_len: int, tm: int, vocab: int, mode: str | None = None,
                           model_ranks: int = 1) -> bool:
@@ -115,7 +108,6 @@ def fused_beam_decode_kernel(params: dict, memory, memory_pad_mask, model_cfg: M
     """The kernel on CUDA tensors: one cluster of one CTA per head for each
     image, the self caches in shared memory or in a global scratch as
     ``geometry.k3_geometry`` says, or as ``on_chip`` says if given."""
-    global launches
     name = "fused_beam_decode"
     b, tm, d = memory.shape
     k, max_len = dec_cfg.beam_width, dec_cfg.max_len
@@ -190,7 +182,7 @@ def fused_beam_decode_kernel(params: dict, memory, memory_pad_mask, model_cfg: M
     err = fn(ctypes.cast(arr, ctypes.c_void_p), b, k, n_layers, d, heads, f, tm, v, vp, max_len, dec_cfg.sos_idx,
              dec_cfg.eos_idx, dec_cfg.pad_idx, int(on_chip), tc, int(cdt == torch.bfloat16), stream)
     build.check(err, name)
-    launches += 1
+    build.count_launch(stream, k3=1)
     if return_scores:
         return tokens.long(), scores
     return tokens.long()

@@ -75,32 +75,6 @@ BLOCK_KINDS = {"finish": 0, "self": 1, "cross": 2, "ffn": 3}
 HEAD_COLS = 128  # the head's vocabulary padded to a multiple of this, as the TPU kernel pads it
 CARD_KERNELS = 7  # kernels one layer step launches on the card route (csrc/decoder_layer_card.cu)
 
-# kernel launches since the last reset_launches(): every K2 launch (a layer step, whichever route), then those
-# in bfloat16, those with the head and those of the card route among them, and the tensor-parallel blocks'
-# launches. A K2 launch inside a CUDA graph's capture launches nothing; the graph's replays launch it
-# (decode/graphs.py moves its count from the capture to each replay).
-launches = 0
-bf16_launches = 0
-head_launches = 0
-card_launches = 0
-block_launches = 0
-
-
-def reset_launches() -> None:
-    global launches, bf16_launches, head_launches, card_launches, block_launches
-    launches = bf16_launches = head_launches = card_launches = block_launches = 0
-
-
-def k2_counts() -> tuple[int, int, int, int]:
-    """(launches, bf16_launches, head_launches, card_launches) of K2."""
-    return launches, bf16_launches, head_launches, card_launches
-
-
-def add_k2_counts(delta) -> None:
-    """Add ``delta`` (as ``k2_counts``) to K2's counts."""
-    global launches, bf16_launches, head_launches, card_launches
-    launches, bf16_launches, head_launches, card_launches = (a + d for a, d in zip(k2_counts(), delta))
-
 
 def layer_weights(lp: dict) -> dict:
     """A packed decoder layer (models/layers.py::pack_step_params) as the
@@ -294,7 +268,6 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     ``geometry.k2_geometry``'s CTAs per head or ``split`` (1 or 2) if given,
     and in float32 the library bounded for ``geometry.k2_two_ctas_an_sm``'s
     CTAs an SM or ``ctas_an_sm`` (1 or 2) if given."""
-    global launches, bf16_launches, head_launches, card_launches
     name = "decoder_layer_step"
     cdt = x.dtype
     if cdt not in (torch.float32, torch.bfloat16):
@@ -342,10 +315,7 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
             raise ValueError(f"{name}: the card route takes float32 greedy batches of at most {CARD_MAX_ROWS} rows "
                              f"without the head at widths it fits (D={d}, heads={num_heads}, F={f}), got {cdt}, "
                              f"{b} rows, {lanes} lane(s), lineage {lineage is not None}, head {head is not None}")
-        out = _card_launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, num_heads, f)
-        launches += 1
-        card_launches += 1
-        return out
+        return _card_launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, num_heads, f)
     if route != "cluster":
         raise ValueError(f"{name}: route {route!r}: 'card' or 'cluster'")
     split = ctas // num_heads if split is None else split
@@ -376,9 +346,7 @@ def decoder_layer_step_kernel(weights, x, pos, self_k, self_v, mem_k, mem_v, mem
     err = fn(ctypes.cast(arr, ctypes.c_void_p), pos.data_ptr(), n_img, lanes, group, d, num_heads, f, cache_len, tm, w,
              split, int(cdt == torch.bfloat16), vp, v_real, stream)
     build.check(err, name)
-    launches += 1
-    bf16_launches += int(cdt == torch.bfloat16)
-    head_launches += int(head is not None)
+    build.count_launch(stream, k2=1, k2_bf16=int(cdt == torch.bfloat16), k2_head=int(head is not None))
     return out if head is None else (out, logp)
 
 
@@ -400,6 +368,7 @@ def _card_launch(weights, x, pos, self_k, self_v, mem_k, mem_v, mem_valid_f, num
     err = fn(ctypes.cast(arr, ctypes.c_void_p), pos.data_ptr(), ctypes.cast(col_arr, ctypes.c_void_p), b, d,
              num_heads, f, self_k.shape[1], mem_k.shape[1], stream)
     build.check(err, "decoder_layer_step (card route)")
+    build.count_launch(stream, k2=1, k2_card=1)
     return out
 
 
@@ -466,7 +435,6 @@ def decoder_block_kernel(kind, weights, x, part=None, pos=0, self_k=None, self_v
     lanes with one CTA per local head, or two for the cross block of a
     long memory (``geometry.k2_geometry`` on the block's memory length; the
     other blocks read no memory), or ``split`` (1 or 2) if given."""
-    global block_launches
     name = "decoder_block"
     if kind not in BLOCK_KINDS:
         raise ValueError(f"{name}: unknown kind {kind!r} (one of {sorted(BLOCK_KINDS)})")
@@ -531,5 +499,5 @@ def decoder_block_kernel(kind, weights, x, part=None, pos=0, self_k=None, self_v
     err = fn(ctypes.cast(arr, ctypes.c_void_p), BLOCK_KINDS[kind], int(round_x), n_img, lanes, group, d, da, hd, fl,
              cache_len, tm, pos, w, split, int(dtype == torch.bfloat16), stream)
     build.check(err, name)
-    block_launches += 1
+    build.count_launch(stream, k2_block=1)
     return x_out, part_out

@@ -30,13 +30,6 @@ import torch
 from . import build, lstm_backward
 from .geometry import CLUSTER_HIDDEN, k1_route
 
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
 
 def _lstm_one(xg: torch.Tensor, w_hh: torch.Tensor):
     b, t, _ = xg.shape
@@ -76,7 +69,6 @@ def lstm_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, with_cell: bool = Fals
 def lstm_recurrence_route(xg: torch.Tensor, w_hh: torch.Tensor, route: tuple[int, int] | None = None,
                           with_cell: bool = False):
     """The kernel on CUDA tensors, by ``k1_route``'s route or the one given."""
-    global launches
     if not (xg.is_cuda and w_hh.is_cuda and xg.device == w_hh.device):
         raise RuntimeError(f"lstm_recurrence: needs CUDA tensors on one device, got {xg.device} and {w_hh.device}")
     if xg.dtype != torch.float32 or w_hh.dtype != torch.float32:
@@ -107,7 +99,7 @@ def lstm_recurrence_route(xg: torch.Tensor, w_hh: torch.Tensor, route: tuple[int
     err = fn(xg.data_ptr(), w_hh.data_ptr(), out.data_ptr(), cells.data_ptr() if with_cell else None, ndir, b, t,
              hidden, kind, rows, stream)
     build.check(err, f"lstm_recurrence (route {kind}, {rows} rows)")
-    launches += 1
+    build.count_launch(stream, k1=1)
     return (out, cells) if with_cell else out
 
 

@@ -26,13 +26,6 @@ import torch
 from . import build
 from .geometry import CLUSTER_HIDDEN, k1b_route
 
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
 
 def _adjoint_one(gates, c, dh, w_hh):
     b, t, _ = gates.shape
@@ -73,7 +66,6 @@ def lstm_adjoint(gates, c, dh, w_hh):
 def lstm_adjoint_kernel(gates, c, dh, w_hh, route: tuple[int, int] | None = None):
     """The kernel on CUDA tensors, by ``geometry.k1b_route``'s (route, rows)
     or the one given: route 0 is the tile route, 8 the cluster route."""
-    global launches
     args = (gates, c, dh, w_hh)
     if not all(x.is_cuda and x.device == gates.device for x in args):
         raise RuntimeError(f"lstm_adjoint: needs CUDA tensors on one device, got {[str(x.device) for x in args]}")
@@ -108,5 +100,5 @@ def lstm_adjoint_kernel(gates, c, dh, w_hh, route: tuple[int, int] | None = None
     err = fn(gates.data_ptr(), c.data_ptr(), dh.data_ptr(), w.data_ptr(), dz.data_ptr(), ndir, b, t, hidden, kind,
              rows, stream)
     build.check(err, f"lstm_adjoint (route {kind}, {rows} rows)")
-    launches += 1
+    build.count_launch(stream, k1b=1)
     return dz

@@ -29,13 +29,6 @@ STEP = 1024  # the bisection stops within this many bytes
 LADDER_KB = (16, 32, 64, 96, 128, 160, 192, 224, 256, 1024)
 CUDA_ERROR_INVALID_VALUE = 1
 
-launches = 0  # kernel launches since the last reset_launches()
-
-
-def reset_launches() -> None:
-    global launches
-    launches = 0
-
 
 def smem_probe_plain(x: torch.Tensor) -> torch.Tensor:
     out = torch.zeros_like(x)
@@ -63,7 +56,6 @@ def _launcher():
 
 def _run(x: torch.Tensor, nbytes: int) -> tuple[torch.Tensor, int]:
     """Launch and synchronise; returns (out, the launcher's cudaError_t)."""
-    global launches
     if not x.is_cuda or x.dtype != torch.float32 or tuple(x.shape) != (8, 128) or not x.is_contiguous():
         raise RuntimeError(f"smem_probe: x must be a contiguous (8, 128) float32 CUDA tensor, got "
                            f"{tuple(x.shape)} {x.dtype} on {x.device}")
@@ -75,7 +67,7 @@ def _run(x: torch.Tensor, nbytes: int) -> tuple[torch.Tensor, int]:
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
     err = _launcher()(x.data_ptr(), out.data_ptr(), nbytes, stream)
     if err == 0:
-        launches += 1
+        build.count_launch(stream, k4=1)
     return out, err
 
 

@@ -234,7 +234,7 @@ def _make_steps(model_cfg, chunk_geom, augment_prob, b1, b2, group, precision, g
             if graphs is None:
                 loss, norm = body(state, stacked, generator, scalars)
             else:
-                loss, norm = graphs.run(key, body, state, stacked, generator, scalars)
+                loss, norm = graphs.step(key, body, state, stacked, generator, scalars)
         state.step += len(lrs)
         return state, {"loss": loss, "grad_norm": norm}
 

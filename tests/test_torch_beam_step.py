@@ -21,9 +21,9 @@ sums run in another order. The wrapper's own checks: CPU tensors take the
 plain version and launch nothing; K outside 1..32, a wrong dtype, shape or
 layout, a vocabulary wider than x, a position of more than one element and
 shared memory beyond the card's raise, and a tensor off the CPU that is not
-a CUDA tensor raises rather than falling back. ``decode/graphs.py`` moves
-K5's launches with K2's from a capture to its replays
-(``kernel_counts``/``add_kernel_counts``).
+a CUDA tensor raises rather than falling back. A capture
+(``cuda_graphs.Graph``) moves K5's launches with K2's to its replays, all
+counted in one registry (``ops/kernels/build.py::launches``).
 
 The plain version runs in one torch-only subprocess (this file run as a
 script), as the other port tests do; the restatement is numpy in the pytest
@@ -269,7 +269,7 @@ if __name__ != "__main__":
 
     def test_graph_counts_move_k5_with_k2(port):
         _, res = port
-        assert res["counts"] == {"after_add": [5, 1, 2, 3, 7], "after_undo": [0, 0, 0, 0, 0]}
+        assert res["counts"] == {"after_capture": [0, 0, 0, 0, 0], "after_replay": [5, 1, 2, 3, 7]}
 
 
 # ---- the torch side (run as a script) ------------------------------------------------------------------------------
@@ -290,12 +290,15 @@ def _state_from(st_np: dict, b: int, k: int, max_len: int, pos: int):
 
 def _port_main(tmp: Path) -> None:
     sys.path.insert(0, str(REPO))
+    import contextlib
+    from types import SimpleNamespace
+
     import torch
 
+    from khmer_ocr_torch import cuda_graphs
     from khmer_ocr_torch.config import DecodeConfig
-    from khmer_ocr_torch.decode import graphs
     from khmer_ocr_torch.decode.beam import beam_advance, beam_state
-    from khmer_ocr_torch.ops.kernels import beam_step, decode_step
+    from khmer_ocr_torch.ops.kernels import beam_step, build
 
     res = {"meets": {}, "checks": {}}
     for name in CASES:
@@ -331,10 +334,10 @@ def _port_main(tmp: Path) -> None:
     logits = torch.from_numpy((np.random.default_rng(5).normal(size=(b * k, v)) * 2).astype(np.float32))
     a, c = (beam_state(b, k, max_len, dec, "cpu") for _ in range(2))
     before = {key: a[key] for key in STATE_KEYS}
-    beam_step.reset_launches()
+    build.reset_launches()
     beam_step.search_step(a, logits, a["pos"], dec, log_probs=False)
     beam_advance(c, torch.log_softmax(logits, dim=-1).reshape(b, k, v), c["pos"], dec)
-    res["cpu"] = {"equal": all(torch.equal(a[key], c[key]) for key in STATE_KEYS), "launches": beam_step.launches,
+    res["cpu"] = {"equal": all(torch.equal(a[key], c[key]) for key in STATE_KEYS), "launches": build.launches["k5"],
                   "same_tensors_replaced": all(a[key] is not before[key] for key in STATE_KEYS)}
 
     # the wrapper's checks, in the kernel's own entry (each raises before any launch)
@@ -369,12 +372,23 @@ def _port_main(tmp: Path) -> None:
     res["checks"]["meta_tensors"] = attempt(fresh(device="meta"), torch.zeros(b * k, v, device="meta"))
     res["smem_3x66x64"] = beam_step.smem_bytes(3, 66, 64)
 
-    decode_step.reset_launches()
-    beam_step.reset_launches()
-    graphs.add_kernel_counts((5, 1, 2, 3, 7))
-    after_add = list(graphs.kernel_counts())
-    graphs.add_kernel_counts(tuple(-d for d in after_add))
-    res["counts"] = {"after_add": after_add, "after_undo": list(graphs.kernel_counts())}
+    # a capture of K2's and K5's launches (the capture itself stubbed: it needs the card)
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    names = ("k2", "k2_bf16", "k2_head", "k2_card", "k5")
+    saved = torch.cuda.CUDAGraph, torch.cuda.graph
+    torch.cuda.CUDAGraph, torch.cuda.graph = FakeGraph, lambda graph, **kw: contextlib.nullcontext()
+    try:
+        build.reset_launches()
+        side = SimpleNamespace(cuda_stream=7)
+        graph = cuda_graphs.Graph(lambda: build.count_launch(7, **dict(zip(names, (5, 1, 2, 3, 7)))), side)
+        after_capture = [build.launches[n] for n in names]
+        graph.replay()
+    finally:
+        torch.cuda.CUDAGraph, torch.cuda.graph = saved
+    res["counts"] = {"after_capture": after_capture, "after_replay": [build.launches[n] for n in names]}
     (tmp / "port.json").write_text(json.dumps(res))
 
 

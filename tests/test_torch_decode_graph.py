@@ -25,10 +25,8 @@ run from the Python loop on CPU tensors:
     ``cpu`` made to raise: the body reads nothing on the host (the CPU's
     stand-in for "capturable");
   * the chunk schedule (``step_chunks``) and the host's window check;
-  * the graph cache (``GraphCache``): the least recently used shapes
-    evicted beyond its budget of bytes, one shape larger than the budget
-    kept alone, every shape dropped for other params, and a shape's bytes
-    counted from its buffers.
+  * a shape's bytes, counted from its buffers (the cache that holds the
+    shapes: tests/test_torch_cuda_graphs.py).
 
 Models: TINY (2 + 2 layers, D 64, 4 heads, vocab 124), weights and memories
 made with numpy from a seed (convert/from_jax.py::seeded_params, the JAX
@@ -148,36 +146,6 @@ if __name__ != "__main__":
 
         assert step_chunks(max_len) == SCHEDULES[max_len]
         assert step_chunks(max_len, 1) == [(w, p, 1) for w, p0, n in SCHEDULES[max_len] for p in range(p0, p0 + n)]
-
-    # (budget, [(key, bytes), ...] asked in order, the keys cached after (least recently used first), the keys made)
-    CACHE_CASES = [(100, [("a", 40), ("b", 40), ("c", 40)], ["b", "c"], ["a", "b", "c"]),
-                   (100, [("a", 40), ("b", 40), ("a", 40), ("c", 40)], ["a", "c"], ["a", "b", "c"]),
-                   (100, [("a", 40), ("b", 40), ("c", 40), ("a", 40)], ["c", "a"], ["a", "b", "c", "a"]),
-                   (100, [("a", 30), ("b", 30), ("c", 30)], ["a", "b", "c"], ["a", "b", "c"]),
-                   (10, [("a", 40), ("b", 5)], ["b"], ["a", "b"])]
-
-    @pytest.mark.parametrize("budget,asked,kept,made_keys", CACHE_CASES,
-                             ids=["evicts", "recent-kept", "evicted-made-again", "fits", "over-budget"])
-    def test_cache_keeps_the_recent_shapes_within_its_budget(budget, asked, kept, made_keys):
-        """The cache evicts its least recently used shapes until the new one
-        fits its budget; a shape larger than the budget is kept, alone;
-        ``make`` runs only for a key not cached."""
-        from types import SimpleNamespace
-
-        from khmer_ocr_torch.decode.graphs import GraphCache
-
-        cache, made = GraphCache(budget), []
-        for key, nbytes in asked:
-            sg = cache.get(key, lambda key=key, nbytes=nbytes: made.append(key) or SimpleNamespace(nbytes=nbytes))
-            assert sg is cache.shapes[key]
-        assert list(cache.shapes) == kept
-        assert made == made_keys
-        assert cache.nbytes == sum(dict(asked)[k] for k in kept)
-
-    def test_cache_drops_its_shapes_for_other_params(port):
-        """The params are packed once for every shape; other params drop the
-        shapes made for the old ones."""
-        assert port["meta"]["packed"] == {"same": True, "kept": 1, "dropped": 0, "repacked": True}
 
     @pytest.mark.parametrize("kind", ["beam", "greedy"])
     def test_shape_bytes_are_its_buffers(port, kind):
@@ -302,14 +270,8 @@ def _port_main(tmp: Path) -> None:
             meta["past_the_caches"] = "returned"
         except Exception as e:  # recorded and asserted on by the test
             meta["past_the_caches"] = f"{type(e).__name__}: {e}"
-        # the graph cache on CPU tensors: the params packed once, other params drop the shapes
-        cache, dc = graphs.GraphCache(10**9), DecodeConfig(beam_width=3, max_len=8, eos_idx=EOS)
-        packed = cache.packed(states["exit"])
-        cache.get("x", lambda: _beam_shape(packed, memory, pad, cfg, dc, False))
-        kept = len(cache)
-        same = cache.packed(states["exit"]) is packed
-        repacked = cache.packed(states["no_exit"]) is not packed
-        meta["packed"] = {"same": same, "kept": kept, "dropped": len(cache), "repacked": repacked}
+        dc = DecodeConfig(beam_width=3, max_len=8, eos_idx=EOS)
+        packed = pack_decode_params(states["exit"])
 
         # a shape's bytes against its buffers' shapes (beam 3, max_len 8, float32)
         ml, k, d, layers = 8, 3, TINY["emb_dim"], TINY["dec_layers"]

@@ -139,7 +139,7 @@ def _port_main(tmp: Path) -> None:
     from khmer_ocr_torch.config import DecodeConfig, ModelConfig
     from khmer_ocr_torch.convert.from_jax import load_npz, params_from_jax, seeded_params
     from khmer_ocr_torch.decode.beam import beam_decode
-    from khmer_ocr_torch.ops.kernels import decode_loop
+    from khmer_ocr_torch.ops.kernels import build, decode_loop
 
     torch.set_num_threads(2)
     cfg = ModelConfig(**TINY)
@@ -168,10 +168,10 @@ def _port_main(tmp: Path) -> None:
             params = params_from_jax(*seeded_params(off_cfg, 0), off_cfg)
             memory, pad = (torch.from_numpy(a) for a in _memory(2, tm, 11))
             stats = {}
-            decode_loop.reset_launches()
+            build.reset_launches()
             beam_decode(params, memory, pad, off_cfg, DecodeConfig(beam_width=k, max_len=max_len, mega_mode="1"),
                         stats=stats)
-            meta[f"off_{name}"] = {**stats, "k3_launches": decode_loop.launches}
+            meta[f"off_{name}"] = {**stats, "k3_launches": build.launches["k3"]}
 
         flag = ModelConfig()
         params = params_from_jax(*seeded_params(flag, 0), flag)

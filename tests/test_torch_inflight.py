@@ -337,7 +337,9 @@ def _port_main(tmp: Path) -> None:
     meta["precision"] = {"before": before, "after": switches(), **seen}
 
     # the encode graphs' cache, with the capture stubbed (CUDA graphs need the card)
-    from khmer_ocr_torch.decode.graphs import GraphCache
+    from types import SimpleNamespace
+
+    from khmer_ocr_torch.cuda_graphs import GraphCache
     from khmer_ocr_torch.infer import encode_graph
 
     events: list = []
@@ -345,11 +347,11 @@ def _port_main(tmp: Path) -> None:
     class FakeGraph:
         def __init__(self, encode, lines, counts):
             self.device, self.nbytes = lines.device, 1
+            self.graph = SimpleNamespace(out=[SimpleNamespace(clone=lambda: "replay")])
             events[-1].append("capture")
 
-        def __call__(self, lines, counts):
+        def replay(self, inputs):
             events.append(["replay"])
-            return "replay"
 
     def eager(lines, counts):
         events.append(["eager"])
@@ -359,7 +361,7 @@ def _port_main(tmp: Path) -> None:
     cache, other = GraphCache(10**9), make().params
     shape_a, shape_b = torch.zeros(2, 48, 184, dtype=torch.uint8), torch.zeros(3, 48, 184, dtype=torch.uint8)
     counts = torch.ones(2, dtype=torch.int32)
-    got = [encode_graph.encode_graphed(cache, prm, eager, lines_t, counts)
+    got = ["".join(encode_graph.encode_graphed(cache, prm, eager, lines_t, counts))
            for prm, lines_t in ((plain.params, shape_a), (plain.params, shape_a), (plain.params, shape_a),
                                 (plain.params, shape_b), (plain.params, shape_b), (other, shape_a))]
     encode_graph.EncodeGraph = real_graph

@@ -151,7 +151,7 @@ def _port_main(tmp: Path) -> None:
     from khmer_ocr_torch.infer import cli
     from khmer_ocr_torch.infer.api import set_predictor
     from khmer_ocr_torch.infer.predictor import Predictor
-    from khmer_ocr_torch.ops.kernels import decode_loop, decode_step, lstm, lstm_backward, smem_probe
+    from khmer_ocr_torch.ops.kernels import build, decode_loop, decode_step, lstm, lstm_backward, smem_probe
     from khmer_ocr_torch.train import cli as train_cli
     from khmer_ocr_torch.train.data import LineDataset
     from khmer_ocr_torch.train.loop import train
@@ -283,19 +283,18 @@ def _port_main(tmp: Path) -> None:
     set_predictor(None)
     cpu_pipe = KhmerOCRPipeline(engine="custom", layout_model_dir=layout, recognizer_model_path=toy, device="cpu")
     res["page_texts"] = cpu_pipe.process_pages([page])
-    res["page_launches"] = [lstm.launches, decode_step.launches, decode_loop.launches]
+    res["page_launches"] = [build.launches[k] for k in ("k1", "k2", "k3")]
     set_predictor(None)
     state = train(dataset, ocfg, tmp / "ck_cpu", device="cpu", num_epochs=1)
     res["train_steps"] = state.step
-    res["train_launches"] = [lstm.launches, lstm_backward.launches]
+    res["train_launches"] = [build.launches[k] for k in ("k1", "k1b")]
     pred = Predictor(params=params, batch_stats=stats, model_cfg=cfg, device="cpu")
     set_predictor(pred)
     res["cpu_strings"] = khmer_ocr_torch.recognize_batch(lines, beam_width=3)
     os.environ["KHMER_OCR_MEGA_DECODE"] = "1"
     res["cpu_strings_mega"] = khmer_ocr_torch.recognize_batch(lines, beam_width=3)
     res["mega_batches"] = pred.mega_batches
-    res["launches"] = [lstm.launches, lstm_backward.launches, decode_step.launches, decode_loop.launches,
-                       smem_probe.launches]
+    res["launches"] = [build.launches[k] for k in ("k1", "k1b", "k2", "k3", "k4")]
     (tmp / "result.json").write_text(json.dumps(res))
 
 

@@ -23,10 +23,9 @@ widths (MiT depth 1 a stage, hidden sizes <= 32) on 64 px pages:
     counts them;
   * the graphs' keys part what a captured graph cannot serve (shapes,
     dtypes, output size, packing, matmul and cuDNN switches, train or eval
-    mode) and nothing else; each cache evicts by bytes (stand-in entries)
-    and drops every key for another model or optimizer state; each runner
-    refuses CPU tensors with ValueError (no eager fallback), before Adam's
-    count moves;
+    mode) and nothing else (the cache that holds them:
+    tests/test_torch_cuda_graphs.py); each runner refuses CPU tensors with
+    ValueError (no eager fallback), before Adam's count moves;
   * the upsample whose backward takes no atomics on the card
     (``segformer._Upsample``): the forward equals ``F.interpolate``'s bit
     for bit and the gradient equals its float64 gradient within float32
@@ -180,13 +179,6 @@ if __name__ != "__main__":
     @pytest.mark.parametrize("case", FORWARD_KEYS)
     def test_forward_key(runs, case):
         assert runs["meta"]["forward_keys"][case] == FORWARD_KEYS[case]
-
-    @pytest.mark.parametrize("cache", ["LayoutTrainGraphs", "DetectionGraphs"])
-    def test_cache_evicts_by_bytes(runs, cache):
-        assert runs["meta"]["evicted"][cache] == [["a"], ["a", "b"], ["b", "c"], ["c", "d"], ["e"]]
-
-    def test_another_model_or_optimizer_state_drops_every_key(runs):
-        assert runs["meta"]["bind"] == {"same": 1, "other_moments": 0, "other_model": 0}
 
     @pytest.mark.parametrize("runner", REFUSALS)
     def test_runner_refuses_cpu_tensors(runs, runner):
@@ -353,38 +345,13 @@ def _port_main(tmp: Path) -> None:
     with matmul_precision("default"):
         meta["forward_keys"]["precision"] = dgraphs.forward_key(model, pixels, (TILE, TILE), True) != base
 
-    # eviction by bytes with stand-in entries, and bind
-    class Entry:
-        def __init__(self, nbytes):
-            self.nbytes, self.device = nbytes, torch.device("cpu")
-
-    meta["evicted"] = {}
-    for cls in (dgraphs.LayoutTrainGraphs, dgraphs.DetectionGraphs):
-        cache, evicted = cls(budget=100), []
-        for key, nbytes in (("a", 60), ("b", 30), ("c", 50), ("d", 40), ("e", 100)):
-            cache.get(key, lambda: Entry(nbytes))
-            evicted.append(list(cache.shapes))
-        meta["evicted"][cls.__name__] = evicted
-    cache, p0 = dgraphs.LayoutTrainGraphs(budget=100), next(model.parameters())
-    mu = [torch.zeros(1)]
-    cache.bind((p0, mu))
-    cache.get("k", lambda: Entry(1))
-    cache.bind((p0, mu))
-    bind = {"same": len(cache)}
-    cache.bind((p0, [torch.zeros(1)]))
-    bind["other_moments"] = len(cache)
-    cache.get("k", lambda: Entry(1))
-    cache.bind((next(build_model(state, cfg).parameters()), mu))
-    bind["other_model"] = len(cache)
-    meta["bind"] = bind
-
     # every runner refuses CPU tensors, before Adam's count moves
     refusals = {}
     step = make_train_step(model, LR, graphs=dgraphs.LayoutTrainGraphs())
     runners = {
-        "layout_train_graphs": lambda: dgraphs.LayoutTrainGraphs().run(
+        "layout_train_graphs": lambda: dgraphs.LayoutTrainGraphs().step(
             step_body, model, step.opt_state, images, labels, torch.zeros(1, 3)),
-        "detection_graphs": lambda: dgraphs.DetectionGraphs().run(
+        "detection_graphs": lambda: dgraphs.DetectionGraphs().forward(
             maps_body(model, (TILE, TILE), True), model, pixels, (TILE, TILE), True),
         "make_train_step": lambda: step(images, labels)}
     for name, run in runners.items():

@@ -58,6 +58,7 @@ def _port_main(tmp: Path) -> None:
     sys.path.insert(0, str(REPO))
     import torch
 
+    from khmer_ocr_torch.ops.kernels import build
     from khmer_ocr_torch.ops.kernels import smem_probe as K
 
     x = K.probe_input("cpu")
@@ -66,7 +67,7 @@ def _port_main(tmp: Path) -> None:
         "plain_row0_exact": bool(torch.equal(plain[0], x[0] + 2.0 * x[0])),
         "plain_rest_zero": bool((plain[1:] == 0).all()),
         "wrapper_is_plain": bool(torch.equal(K.smem_probe(x, 4096), plain)),
-        "launches": K.launches,
+        "launches": build.launches["k4"],
         "bisect": {},
     }
     for limit in LIMITS:

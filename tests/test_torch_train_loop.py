@@ -49,8 +49,8 @@ corrections equals the update of a Python float lr bit for bit; a K-step
 multi step equals K single steps bit for bit; the K-step body reads nothing
 on the host (``Tensor.item``, ``__bool__``, ... raise while it runs, with
 augmentation and dropout on) and so can be captured; ``TrainGraphs``' keys
-and its eviction by bytes (stand-in entries), and its refusal of CPU
-tensors; two gloo ranks each train on their rows of every stacked group.
+and its refusal of CPU tensors (its eviction: tests/test_torch_cuda_graphs.py);
+two gloo ranks each train on their rows of every stacked group.
 """
 
 from __future__ import annotations
@@ -296,10 +296,6 @@ if __name__ != "__main__":
         probe call shows the patch was live."""
         m = runs["port"]["capturable"]
         assert m["probe_raised"] and m["body_ran"] and m["finite"], m
-
-    def test_train_graphs_evict_by_bytes(runs):
-        m = runs["port"]["graphs"]
-        assert m["evicted"] == [["a"], ["a", "b"], ["b", "c"], ["c", "d"], ["e"]]
 
     def test_train_graphs_keys(runs):
         """A key per shape, per K and per matmul precision, the same for
@@ -558,27 +554,18 @@ def _port_main(tmp: Path) -> None:
     meta["capturable"] = {"probe_raised": probe_raised, "body_ran": body_ran,
                           "finite": bool(torch.isfinite(loss).all() and torch.isfinite(norm).all())}
 
-    # TrainGraphs: eviction by bytes with stand-in entries, the keys, CPU tensors refused
-    class Entry:
-        def __init__(self, nbytes):
-            self.nbytes, self.device = nbytes, torch.device("cpu")
-
-    cache = tgraphs.TrainGraphs(budget=100)
-    evicted = []
-    for key, nbytes in (("a", 60), ("b", 30), ("c", 50), ("d", 40), ("e", 100)):
-        cache.get(key, lambda: Entry(nbytes))
-        evicted.append(list(cache.shapes))
+    # TrainGraphs: the keys, CPU tensors refused
     one_batch = {k: v[:1] for k, v in stacked.items()}
     keys = {tgraphs.graph_key(("step",), stacked, 3), tgraphs.graph_key(("step",), one_batch, 1),
             tgraphs.graph_key(("step",), one_batch, 3)}
     with matmul_precision("default"):
         keys.add(tgraphs.graph_key(("step",), one_batch, 1))
     try:
-        tgraphs.TrainGraphs().run(("step",), body, st, stacked, torch.Generator(), scalars)
+        tgraphs.TrainGraphs().step(("step",), body, st, stacked, torch.Generator(), scalars)
         cpu_raises = "ran"
     except Exception as e:  # asserted on by the test
         cpu_raises = f"{type(e).__name__}: {e}"
-    meta["graphs"] = {"evicted": evicted, "distinct_keys": len(keys),
+    meta["graphs"] = {"distinct_keys": len(keys),
                       "same_key": tgraphs.graph_key(("step",), stacked, 3) == tgraphs.graph_key(
                           ("step",), {k: v.clone() for k, v in stacked.items()}, 3),
                       "cpu_raises": cpu_raises}
